@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
-Every `csrc/*.cu` of this package is compiled with `nvcc` for sm_90a into
-one shared library with a plain C interface, on first use, and loaded
-with `ctypes`. The library lands in `bs_call_tpu_torch/build/<hash>/`,
+Every `csrc/*.cu` of this package is compiled with `nvcc` for sm_90a, one
+`nvcc -c` per source, all started together, and linked into one shared
+library with a plain C interface, on first use, and loaded with
+`ctypes`. The library lands in `bs_call_tpu_torch/build/<hash>/`,
 keyed by a hash of the sources and the compile command, so an edit
 rebuilds and an unchanged tree reuses the previous build. A failed build
 raises with nvcc's output; there is no fallback.
@@ -28,9 +29,10 @@ LIB_NAME = "libbsct_kernels.so"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _lock = threading.Lock()
 _lib = None
@@ -55,7 +57,7 @@ def sources():
 
 
 def _key(srcs) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in srcs:
         h.update(os.path.basename(p).encode())
         with open(p, "rb") as f:
@@ -77,18 +79,35 @@ def build() -> str:
     os.makedirs(out_dir, exist_ok=True)
     # build beside the target and rename: a concurrent process either
     # sees no library or a complete one
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {res.returncode}): {' '.join(cmd)}\n"
-            + build_log
-        )
-    os.replace(tmp, lib)
+    tmp = tempfile.mkdtemp(dir=out_dir)
+    try:
+        nvcc = _nvcc()
+        objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, p]
+                for p, o in zip(srcs, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        so = os.path.join(tmp, LIB_NAME)
+        link = [nvcc, *LINK_FLAGS, "-o", so, *objs]
+        for cmd, proc, out in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (exit {proc.returncode}): "
+                    f"{' '.join(cmd)}\n" + out
+                )
+        res = subprocess.run(link, capture_output=True, text=True)
+        build_log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed (exit {res.returncode}): "
+                f"{' '.join(link)}\n" + res.stdout + res.stderr
+            )
+        os.replace(so, lib)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return lib
 
 

@@ -1,11 +1,13 @@
 """K1, the pileup scatter of `csrc/pileup.cu`, its plain PyTorch version,
-and the fused exact tier `fused_ll_f64` (K1 -> K2's pileup entry).
+and the fused exact tier: `fused_ll_f64` (K1 -> K2's pileup entry) and
+`fused_ll_emit` (K1 -> K2 -> K3, the emit tier).
 
 Counterpart of `bs_call_tpu/ops/kernels/pileup_device.py`
-(`device_pileup`, `_agg_quals_f32`, `fused_ll_dd`, `pad_read_batch`).
-The normalised read batch of a block crosses to the device once; the
-pileup, the quality rounding and the f64 genotype model run there, and
-only the call planes plus the uint8 quals come back.
+(`device_pileup`, `_agg_quals_f32`, `fused_ll_dd`, `pad_read_batch`) and
+of `emit_device.fused_ll_emit`. The normalised read batch of a block
+crosses to the device once; the pileup, the quality rounding, the f64
+genotype model and (with the emit tier) the emit fields run there, and
+only the call planes, the uint8 quals and the packed fields come back.
 
 Read batch layout (as in the JAX package):
     rd      [R, L] uint8   (base & 3 | qual << 2), 0-padded
@@ -23,8 +25,10 @@ import numpy as np
 import torch
 
 from bs_call_tpu.constants import BASE_TAB_ST, FLT_QUAL
+from bs_call_tpu_torch.ops.emit_tables import EmitTables
 from bs_call_tpu_torch.ops.genotype import call_genotypes_pileup
 from bs_call_tpu_torch.ops.kernels import _build
+from bs_call_tpu_torch.ops.kernels.emit_device import emit_fields
 from bs_call_tpu_torch.ops.kernels.genotype_cuda import check_rc, require
 from bs_call_tpu_torch.ops.params import ModelTables
 
@@ -149,12 +153,36 @@ def fused_ll_f64(rd, starts, ori, strand, mapq, ref, n_pos: int,
     on the current stream with no host round-trip. ref [n_pos] int32.
     Returns (gt_prob [P,10] f64, max_gt [P] i32, margin [P] f64,
     off_sum [P] f64, quals_u8 [P,8])."""
+    return _fused(rd, starts, ori, strand, mapq, ref, n_pos, min_qual,
+                  tables)[2]
+
+
+def _fused(rd, starts, ori, strand, mapq, ref, n_pos, min_qual, tables):
     if tables.dtype != torch.float64:
-        raise ValueError(f"fused_ll_f64 needs float64 tables: {tables.dtype}")
-    counts2, qual_sum, _mapq2 = device_pileup(
+        raise ValueError(
+            f"the fused tier needs float64 tables: {tables.dtype}"
+        )
+    counts2, qual_sum, mapq2_sum = device_pileup(
         rd, starts, ori, strand, mapq, n_pos, min_qual
     )
-    return call_genotypes_pileup(counts2, qual_sum, ref, tables)
+    return counts2, mapq2_sum, call_genotypes_pileup(
+        counts2, qual_sum, ref, tables
+    )
+
+
+def fused_ll_emit(rd, starts, ori, strand, mapq, ref, n_pos: int,
+                  min_qual: int, tables: ModelTables, emit: EmitTables,
+                  quirk: bool = True):
+    """The emit tier: `fused_ll_f64`'s outputs plus the chunk's packed
+    emit fields (`emit_device.unpack_fields`), K1 -> K2 -> K3 in order on
+    the current stream with no host round-trip (the plain versions for a
+    CPU batch). Returns (gt_prob, max_gt, margin, off_sum, quals_u8,
+    packed uint8 [n_pos * ROW_BYTES])."""
+    counts2, mapq2_sum, out = _fused(
+        rd, starts, ori, strand, mapq, ref, n_pos, min_qual, tables
+    )
+    packed = emit_fields(*out[:4], counts2, mapq2_sum, ref, emit, quirk)
+    return (*out, packed)
 
 
 def pad_read_batch(reads: dict, lo: int, hi: int, r_pad: int, l_cap: int):

@@ -6,9 +6,15 @@
 tiers with PyTorch ones on the device the caller passes:
 
 * fused tier (exact mode): the block's read batch crosses to the device
-  once, K1 builds the pileup and K2 runs the f64 model on it
-  (`fused_ll_f64`); the host compares the device quals with its own
-  aggregate and sends rows that differ to the oracle;
+  once, K1 builds the pileup and K2 runs the f64 model on it; the host
+  compares the device quals with its own aggregate and sends rows that
+  differ to the oracle. With the emit tier (`BS_CALL_EMIT_TIER`, on
+  unless set to 0, read once at construction as the JAX engine reads
+  it), K3 also computes the emit fields on the device (`fused_ll_emit`)
+  and they come back in one packed copy as `soa["dev_prep"]`: the
+  emitter uses every row K3 did not flag and recomputes the rest on the
+  host, as does the host Fisher test; with it off (`fused_ll_f64`) the
+  host computes Fisher and the emit fields for every row;
 * column tier: host-built pileup columns go through K2, in f64 (exact)
   or f32 (`--no-exact`), in chunks of `batch_positions`, in order on the
   current stream.
@@ -27,17 +33,21 @@ import torch
 
 from bs_call_tpu.config import CallerConfig
 from bs_call_tpu.pipeline.engine import CallEngine
+from bs_call_tpu_torch.ops.emit_tables import emit_tables
 from bs_call_tpu_torch.ops.genotype import call_genotypes
+from bs_call_tpu_torch.ops.kernels.emit_device import (
+    TIE_MARGIN,
+    unpack_fields,
+)
 from bs_call_tpu_torch.ops.kernels.pileup_device import (
+    fused_ll_emit,
     fused_ll_f64,
     pad_read_batch,
 )
 from bs_call_tpu_torch.ops.params import ModelParams, model_tables
 
-# margin below which _finish_exact recomputes a row with the scalar oracle
-TIE_MARGIN = 1e-9
-
-TIERS = ("fused", "column", "oracle", "shape_reroute", "quals_reroute")
+TIERS = ("fused", "column", "oracle", "shape_reroute", "quals_reroute",
+         "emit", "emit_risk")
 
 
 class TorchCallEngine(CallEngine):
@@ -53,9 +63,12 @@ class TorchCallEngine(CallEngine):
         )
         dtype = torch.float64 if cfg.exact else torch.float32
         self._tables = model_tables(params, dtype, device)
+        self._emit_tables = emit_tables(device)
         # positions called per tier: fused / column are the device tiers,
         # oracle the rows rescued by the scalar oracle, the *_reroute
-        # entries the covered positions the fused tier handed back
+        # entries the covered positions the fused tier handed back; emit
+        # the covered positions that came back with device emit fields,
+        # emit_risk those of them flagged for the host
         self.tier_positions = dict.fromkeys(TIERS, 0)
 
     @property
@@ -77,9 +90,12 @@ class TorchCallEngine(CallEngine):
     def _call_fused(self, reads: dict, lo: int, hi: int, ref_codes, agg,
                     covered_idx):
         """Fused tier over block-relative window [lo, hi]. Returns
-        (gt_prob, max_gt, margin, off, None) for the covered rows, with
+        (gt_prob, max_gt, margin, off, prep) for the covered rows, with
         margin 0 on rows whose device quals differ from the host
-        aggregate, or None to hand the chunk to the column tier."""
+        aggregate, or None to hand the chunk to the column tier. prep is
+        the emit tier's dict of window-aligned numpy views ([:sz] of the
+        packed buffer, `emit_device.unpack_fields`), with quals-mismatch
+        rows flagged risky, or None when the tier is off."""
         sz = hi - lo + 1
         # runner chunks are at most max(batch_positions, 1024) + 16 wide
         n_pos = max(self.cfg.batch_positions, 1024) + self._FUSED_PAD
@@ -99,10 +115,18 @@ class TorchCallEngine(CallEngine):
         ref_pad = np.zeros(n_pos, np.int32)
         ref_pad[:sz] = np.asarray(ref_codes, dtype=np.int32)
         args = [self._to_device(a) for a in (*padded, ref_pad)]
-        out = fused_ll_f64(
-            *args, n_pos=n_pos, min_qual=self.cfg.min_qual,
-            tables=self._tables,
-        )
+        packed = None
+        if self._emit_tier:
+            *out, packed = fused_ll_emit(
+                *args, n_pos=n_pos, min_qual=self.cfg.min_qual,
+                tables=self._tables, emit=self._emit_tables,
+                quirk=self.cfg.reference_quirks,
+            )
+        else:
+            out = fused_ll_f64(
+                *args, n_pos=n_pos, min_qual=self.cfg.min_qual,
+                tables=self._tables,
+            )
         idx = self._to_device(covered_idx.astype(np.int64))
         gt_prob, max_gt, margin, off, dev_q = (
             t.index_select(0, idx).cpu().numpy() for t in out
@@ -116,7 +140,18 @@ class TorchCallEngine(CallEngine):
             return None
         margin[mism] = 0.0  # the oracle recomputes these from host inputs
         self.tier_positions["fused"] += n_cov
-        return gt_prob, max_gt, margin, off, None
+        prep = None
+        if packed is not None:
+            prep = unpack_fields(packed.cpu().numpy(), n_pos, sz)
+            prep["fs_lo"] = np.zeros(sz)
+            # the device built these rows from quals the host disagrees
+            # with: their fields are stale
+            prep["risk"][covered_idx[mism]] = True
+            self.tier_positions["emit"] += n_cov
+            self.tier_positions["emit_risk"] += int(
+                prep["risk"][covered_idx].sum()
+            )
+        return gt_prob, max_gt, margin, off, prep
 
     def _reroute(self, why: str, n: int, detail: str) -> None:
         self.tier_positions[f"{why}_reroute"] += n

@@ -13,12 +13,24 @@ and g++. Phases, each of which raises on failure (exit code 1):
    and f32, with kernel and plain times from CUDA events;
 4. K1, the pileup scatter, against its plain version on the card at
    4,096 reads x 256 bases over 32,832 positions;
-5. end to end on a 600k-read WGBS fixture (4 contigs x 1.25 Mbp, 150k
-   reads each, seed 0, dbSNP every 503 bp): `bs_call_tpu_torch.cli
-   --device cuda` in this process against `bs_call_tpu.cli --device cpu`
-   (the native host engine) in a subprocess. VCF and report bytes must
-   be equal, and the launch counts of K1 and K2, reset just before the
-   port's run, must show that the run went through both kernels.
+5. K3, the emit-fields kernel, against its plain version on the card at
+   32,832 positions: K2's pileup-entry outputs on phase 3's inputs plus
+   a mapq2 sum, a few rows of it at or above 2^24 (which both must
+   flag). Every field must be equal on the rows neither flags; the
+   number of rows whose risk bit differs is printed, with kernel and
+   plain times from CUDA events;
+6. end to end on a 600k-read WGBS fixture (4 contigs x 1.25 Mbp, 150k
+   reads each, seed 0, dbSNP every 503 bp): `bs_call_tpu.cli --device
+   cpu` (the native host engine) in a subprocess, then
+   `bs_call_tpu_torch.cli --device cuda` twice in this process, with the
+   emit tier on (the default: K1 -> K2 -> K3) and with
+   `BS_CALL_EMIT_TIER=0` (K1 -> K2, host emit prep). VCF and report bytes
+   of both must equal the host's. The launch counts, reset just before
+   each port run, must show that the tier-on run went through K1, K2 and
+   K3 (K3 once per K1 launch) and the tier-off run through no K3; the
+   tier-on run's risk-flagged share of the covered positions it carried
+   (`tier_emit_risk` / `tier_emit`) must stay at or below 2%. The three
+   walls are printed beside the card.
 
 The line before the last is a JSON object with one entry per kernel of
 the main path; the last is `{"ok": true, "device": {...}}`. Imports
@@ -135,6 +147,58 @@ def check_k2(torch, np, dev):
     return results
 
 
+def check_k3(torch, np, dev):
+    from bs_call_tpu_torch.ops.emit_tables import emit_tables
+    from bs_call_tpu_torch.ops.kernels import emit_cuda as K3
+    from bs_call_tpu_torch.ops.kernels import emit_device as E
+    from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
+    from bs_call_tpu_torch.ops.params import ModelParams, model_tables
+
+    counts2, qual_sum, counts, _quals, ref = genotype_inputs(np, N_POS, 0)
+    rng = np.random.default_rng(2)
+    mq = rng.integers(0, 61, N_POS)
+    mapq2 = (counts.sum(axis=1) * mq * mq).astype(np.float32)
+    deep = rng.choice(N_POS, 8, replace=False)
+    mapq2[deep] = np.float32(2.0**24) + 512 * np.arange(8)
+    c2, qs, m2, r = (torch.from_numpy(a).to(dev)
+                     for a in (counts2, qual_sum, mapq2, ref))
+    tables = model_tables(ModelParams(), torch.float64, dev)
+    et = emit_tables(dev)
+    k2 = K2.genotype_pileup(c2, qs, r, tables)[:4]
+    args = (*k2, c2, m2, r, et)
+    got = K3.emit_fields_cuda(*args)
+    want = E.pack_fields(E.emit_fields_plain(*args))
+    torch.cuda.synchronize()
+    g = E.unpack_fields(got.cpu().numpy(), N_POS)
+    w = E.unpack_fields(want.cpu().numpy(), N_POS)
+    ok = ~(g["risk"] | w["risk"])
+    for name, a in g.items():
+        if name not in ("risk", "fs_hi") and not np.array_equal(
+            a[ok].view(np.uint8), w[name][ok].view(np.uint8)
+        ):
+            raise AssertionError(f"K3 {name} differs from the plain version")
+    # the Fisher log10 p, an f64 value beside its integer fs_int: the same
+    # libdevice exp/log on both sides, tolerance 1e-12 relative
+    err = float(np.abs(g["fs_hi"][ok] - w["fs_hi"][ok]).max())
+    np.testing.assert_allclose(g["fs_hi"][ok], w["fs_hi"][ok], rtol=1e-12,
+                               atol=1e-15)
+    cov = g["covered"][deep]
+    if not (g["risk"][deep][cov].all() and w["risk"][deep][cov].all()):
+        raise AssertionError("K3: a mapq2 sum past 2^24 was not flagged")
+    if ok.sum() < N_POS // 2:
+        raise AssertionError(f"K3: only {ok.sum()} rows unflagged")
+    n_diff = int((g["risk"] != w["risk"]).sum())
+    ms = time_ms(lambda: K3.emit_fields_cuda(*args), torch)
+    plain_ms = time_ms(lambda: E.pack_fields(E.emit_fields_plain(*args)),
+                       torch)
+    log(f"K3 emit_fields_f64: N={N_POS} every field equal on {ok.sum()} "
+        f"rows neither flags (max|d fs|={err:.3e}, tol 1e-12 relative); "
+        f"risk bits differ on {n_diff} rows "
+        f"(kernel {int(g['risk'].sum())}, plain {int(w['risk'].sum())} "
+        f"flagged); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
 def read_batch(np, R, L, n_pos, seed):
     """R reads of 100..L bases at sorted starts over [-200, n_pos), with
     q 0..43, some masked (FLT_QUAL) and zero-padded tails."""
@@ -177,6 +241,7 @@ def end_to_end(torch, card):
     from bs_call_tpu.utils.synth import make_dbsnp_index, make_wgbs_fixture
     from bs_call_tpu.utils.trace import Tracer
     from bs_call_tpu_torch import cli
+    from bs_call_tpu_torch.ops.kernels import emit_cuda as K3
     from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
     from bs_call_tpu_torch.ops.kernels import pileup_device as PD
     from bs_call_tpu_torch.parity import strip_date
@@ -205,7 +270,8 @@ def end_to_end(torch, card):
             f"{time.perf_counter() - t0:.1f} s")
         common = [bam, "-r", ref, "-D", dbsnp, "--benchmark-mode"]
         out = {k: os.path.join(tmp, k) for k in (
-            "host.vcf", "host.json", "port.vcf", "port.json")}
+            "host.vcf", "host.json", "port.vcf", "port.json",
+            "port_off.vcf", "port_off.json")}
 
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
@@ -220,55 +286,88 @@ def end_to_end(torch, card):
         )
         host_s = time.perf_counter() - t0
 
-        tracer = Tracer()
-        PD.pileup_scatter.launches = 0
-        K2.genotype_pileup.launches = 0
-        K2.genotype_column.launches = 0
-        t0 = time.perf_counter()
-        rc = cli.main(
-            [*common, "-o", out["port.vcf"], "--report-file",
-             out["port.json"], "--device", "cuda"],
-            tracer=tracer,
-        )
-        torch.cuda.synchronize()
-        port_s = time.perf_counter() - t0
-        launches = {
-            "pileup_scatter": PD.pileup_scatter.launches,
-            "genotype_pileup_f64": K2.genotype_pileup.launches,
-            "genotype_column": K2.genotype_column.launches,
-        }
-        if rc != 0:
-            raise AssertionError(f"port CLI exited {rc}")
-
         def read(k):
             with open(out[k]) as f:
                 return f.read()
 
+        def port_run(tag, emit_tier):
+            """One port run in this process, the launch counts reset just
+            before it; BS_CALL_EMIT_TIER is read when the engine is built,
+            so it is set around cli.main."""
+            tracer = Tracer()
+            for fn in (PD.pileup_scatter, K2.genotype_pileup,
+                       K2.genotype_column, K3.emit_fields_cuda):
+                fn.launches = 0
+            before = os.environ.get("BS_CALL_EMIT_TIER")
+            os.environ["BS_CALL_EMIT_TIER"] = "1" if emit_tier else "0"
+            try:
+                t0 = time.perf_counter()
+                rc = cli.main(
+                    [*common, "-o", out[f"{tag}.vcf"], "--report-file",
+                     out[f"{tag}.json"], "--device", "cuda"],
+                    tracer=tracer,
+                )
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                if before is None:
+                    del os.environ["BS_CALL_EMIT_TIER"]
+                else:
+                    os.environ["BS_CALL_EMIT_TIER"] = before
+            if rc != 0:
+                raise AssertionError(f"port CLI ({tag}) exited {rc}")
+            launches = {
+                "pileup_scatter": PD.pileup_scatter.launches,
+                "genotype_pileup_f64": K2.genotype_pileup.launches,
+                "genotype_column": K2.genotype_column.launches,
+                "emit_fields_f64": K3.emit_fields_cuda.launches,
+            }
+            tiers = {k[5:]: v for k, v in tracer.counts.items()
+                     if k.startswith("tier_")}
+            log(f"e2e [{card}]: {tag}: tier positions {json.dumps(tiers)}; "
+                f"launches {json.dumps(launches)}; positions "
+                f"{tracer.counts.get('positions', 0)}")
+            log(f"e2e [{card}]: {tag}: stage seconds " + json.dumps(
+                {k: round(v, 3) for k, v in sorted(tracer.times.items())}))
+            if read(f"{tag}.vcf") != read("host.vcf"):
+                raise AssertionError(
+                    f"{tag}: VCF bytes differ from bs_call_tpu --device cpu"
+                )
+            if strip_date(read(f"{tag}.json")) != strip_date(
+                read("host.json")
+            ):
+                raise AssertionError(
+                    f"{tag}: report differs from bs_call_tpu --device cpu"
+                )
+            if not (launches["pileup_scatter"] > 0
+                    and launches["genotype_pileup_f64"] > 0):
+                raise AssertionError(f"{tag} skipped a kernel: {launches}")
+            if tiers.get("fused", 0) == 0:
+                raise AssertionError(f"{tag}: fused tier carried nothing")
+            return wall, launches, tiers
+
+        total = n_ctg * n_reads
+        on_s, launches, tiers = port_run("port", emit_tier=True)
+        if not (0 < launches["emit_fields_f64"]
+                == launches["pileup_scatter"]):
+            raise AssertionError(f"K3 not once per K1 launch: {launches}")
+        risky = tiers.get("emit_risk", 0) / max(tiers.get("emit", 0), 1)
+        if tiers.get("emit", 0) == 0 or risky > 0.02:
+            raise AssertionError(f"emit tier: {tiers}")
+        off_s, off_launches, off_tiers = port_run("port_off", emit_tier=False)
+        if off_launches["emit_fields_f64"] or off_tiers.get("emit", 0):
+            raise AssertionError("BS_CALL_EMIT_TIER=0 still ran K3")
         n_rec = sum(1 for ln in read("port.vcf").splitlines()
                     if not ln.startswith("#"))
-        tiers = {k[5:]: v for k, v in tracer.counts.items()
-                 if k.startswith("tier_")}
-        total = n_ctg * n_reads
-        log(f"e2e [{card}]: {total} reads, {n_rec} VCF records, comparing")
-        log(f"e2e [{card}]: port --device cuda in this process "
-            f"{port_s:.2f} s ({total / port_s:.0f} reads/s); host "
-            f"bs_call_tpu --device cpu as a subprocess {host_s:.2f} s "
+        log(f"e2e [{card}]: {total} reads, {n_rec} VCF records; VCF and "
+            f"report bytes of both port runs equal the host's; "
+            f"tier_emit {tiers['emit']}, tier_emit_risk "
+            f"{tiers.get('emit_risk', 0)} ({100 * risky:.3f}% of them)")
+        log(f"e2e [{card}]: walls: port --device cuda, emit tier on, in "
+            f"this process {on_s:.3f} s ({total / on_s:.0f} reads/s); "
+            f"emit tier off {off_s:.3f} s ({total / off_s:.0f} reads/s); "
+            f"host bs_call_tpu --device cpu as a subprocess {host_s:.3f} s "
             f"({total / host_s:.0f} reads/s)")
-        log(f"e2e [{card}]: tier positions {json.dumps(tiers)}; "
-            f"launches {json.dumps(launches)}; positions "
-            f"{tracer.counts.get('positions', 0)}")
-        log(f"e2e [{card}]: port stage seconds " + json.dumps(
-            {k: round(v, 3) for k, v in sorted(tracer.times.items())}))
-        if read("port.vcf") != read("host.vcf"):
-            raise AssertionError("VCF bytes differ from bs_call_tpu --device cpu")
-        if strip_date(read("port.json")) != strip_date(read("host.json")):
-            raise AssertionError("report differs from bs_call_tpu --device cpu")
-        if not (launches["pileup_scatter"] > 0
-                and launches["genotype_pileup_f64"] > 0):
-            raise AssertionError(f"main path skipped a kernel: {launches}")
-        if tiers.get("fused", 0) == 0:
-            raise AssertionError(f"fused tier carried nothing: {tiers}")
-        log(f"e2e [{card}]: VCF and report bytes equal")
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -306,6 +405,7 @@ def main() -> int:
 
     k2 = check_k2(torch, np, dev)
     k1 = check_k1(torch, np, dev)
+    k3 = check_k3(torch, np, dev)
     launches = end_to_end(torch, card)
     if "jax" in sys.modules:
         raise AssertionError("the port's run imported jax")
@@ -321,10 +421,15 @@ def main() -> int:
          "replaces": "bs_call_tpu/ops/kernels/genotype_pallas.py:48",
          "launches": launches["genotype_pileup_f64"],
          **k2["genotype_pileup_f64"]},
+        {"name": "emit_fields_f64", "route": "cuda",
+         "source": src + "emit.cu",
+         "replaces": "bs_call_tpu/ops/kernels/emit_device.py:256",
+         "launches": launches["emit_fields_f64"], **k3},
     ]
     print(f"[{card}] " + "; ".join(
         f"{k} kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms"
-        for k, v in k2.items()), flush=True)
+        for k, v in {**k2, "pileup_scatter": k1,
+                     "emit_fields_f64": k3}.items()), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -82,12 +82,35 @@ def wgbs(tmp_path_factory):
                 benchmark_mode=True, sample_name="port")
 
 
-def test_wgbs_exact_bytes_and_tiers(wgbs):
-    """(exact) port bytes == bs_call_tpu run_caller bytes, and the fused
-    tier carried every called position."""
-    want_vcf, want_rep, _ = run(
-        jax_run_caller, CallerConfig(device="cpu", **wgbs)
-    )
+@pytest.fixture(scope="module")
+def wgbs_want(wgbs):
+    """bs_call_tpu's own run_caller (host engines) on the WGBS fixture."""
+    return run(jax_run_caller, CallerConfig(device="cpu", **wgbs))[:2]
+
+
+@pytest.fixture
+def splice_hits(monkeypatch):
+    """Counts the emitter's calls that used device emit fields."""
+    import bs_call_tpu.output.vector_site as vs
+
+    hits = {"n": 0}
+    orig = vs._splice_dev_prep
+
+    def spy(*a, **k):
+        r = orig(*a, **k)
+        if r is not None:
+            hits["n"] += 1
+        return r
+
+    monkeypatch.setattr(vs, "_splice_dev_prep", spy)
+    return hits
+
+
+def test_wgbs_exact_bytes_and_tiers(wgbs, wgbs_want, splice_hits):
+    """(exact, emit tier on: the default) port bytes == bs_call_tpu
+    run_caller bytes, the fused tier carried every called position, and
+    the emitter used the device emit fields."""
+    want_vcf, want_rep = wgbs_want
     vcf, rep, counts = run(run_caller, CallerConfig(device="cpu", **wgbs),
                            CPU)
     assert vcf == want_vcf
@@ -95,6 +118,58 @@ def test_wgbs_exact_bytes_and_tiers(wgbs):
     assert counts["tier_fused"] > 10_000
     assert counts["tier_column"] == 0
     assert counts["tier_shape_reroute"] == counts["tier_quals_reroute"] == 0
+    assert counts["tier_emit"] == counts["tier_fused"]
+    assert counts["tier_emit_risk"] <= counts["tier_emit"] // 50
+    assert splice_hits["n"] > 0, "device emit fields never engaged"
+
+
+def test_wgbs_emit_tier_off_bytes(wgbs, wgbs_want, splice_hits,
+                                  monkeypatch):
+    """BS_CALL_EMIT_TIER=0: the fused tier without device emit fields
+    (host Fisher and emit prep for every row) writes the same bytes."""
+    monkeypatch.setenv("BS_CALL_EMIT_TIER", "0")
+    vcf, rep, counts = run(run_caller, CallerConfig(device="cpu", **wgbs),
+                           CPU)
+    assert (vcf, rep) == wgbs_want
+    assert counts["tier_fused"] > 10_000
+    assert counts["tier_emit"] == counts["tier_emit_risk"] == 0
+    assert splice_hits["n"] == 0
+
+
+def test_emit_tier_reference_with_N(tmp_path, splice_hits):
+    """On an N-holed reference the emitter's context-truncated ref code
+    (print_vcf.c:563-580) differs from K3's raw code after every N; those
+    rows recompute on the host and the bytes stay equal to bs_call_tpu's
+    (the case of tests/test_fused_engine.py)."""
+    from bs_call_tpu.io.bam import BamHeader, BamWriter
+
+    rng = np.random.default_rng(3)
+    L = 4000
+    seq = rng.choice(list("ACGT"), L)
+    for p in range(50, L - 3, 37):
+        seq[p] = "N"
+    ref = tmp_path / "n.fa"
+    ref.write_text(">chr1\n" + "\n".join(
+        "".join(seq[i:i + 60]) for i in range(0, L, 60)) + "\n")
+    hdr = BamHeader(
+        text=f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chr1\tLN:{L}\n",
+        ref_names=["chr1"], ref_lens=[L],
+    )
+    bam = tmp_path / "n.bam"
+    w = BamWriter(str(bam), hdr)
+    for k, pos in enumerate(range(0, L - 80, 3)):
+        rseq = ["A" if b == "N" else b for b in seq[pos:pos + 60]]
+        for i in np.nonzero(rng.random(60) < 0.03)[0]:
+            rseq[i] = "ACGT"[int(rng.integers(0, 4))]
+        w.write(f"r{k:05d}", 0, 0, pos, 57, [(60, 0)], -1, -1, 0,
+                "".join(rseq), rng.integers(20, 44, 60).astype(np.uint8))
+    w.close()
+    kw = dict(input_file=str(bam), reference_file=str(ref),
+              benchmark_mode=True, device="cpu")
+    want = run(jax_run_caller, CallerConfig(**kw))[:2]
+    vcf, rep, counts = run(run_caller, CallerConfig(**kw), CPU)
+    assert (vcf, rep) == want
+    assert counts["tier_emit"] > 0 and splice_hits["n"] > 0
 
 
 def test_wgbs_no_exact_records(wgbs):
@@ -136,14 +211,16 @@ def first_block(tmp_path, seed):
 
 def test_quals_mismatch_goes_to_oracle(tmp_path):
     """One row whose host quals differ from the device's is recomputed by
-    the scalar oracle from the host inputs."""
+    the scalar oracle from the host inputs, and its device emit fields
+    are flagged for the host."""
     cfg, blk, reads, sz, covered, ref_codes = first_block(tmp_path, 5)
     agg = blk["agg"]
     j = covered[len(covered) // 2]
     agg["quals"][j, int(np.argmax(agg["counts"][j]))] += 1
     eng = TorchCallEngine(cfg, CPU)
     res = eng._call_fused(reads, 0, sz - 1, ref_codes, agg, covered)
-    assert res is not None and res[4] is None
+    assert res is not None and res[4] is not None
+    assert len(res[4]["risk"]) == sz and res[4]["risk"][j]
     gt_prob, max_gt, margin, _off = eng._finish_exact(
         *res[:4], agg["counts"][covered].astype(np.int32),
         agg["quals"][covered], ref_codes[covered],
