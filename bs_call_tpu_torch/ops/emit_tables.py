@@ -31,15 +31,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from bs_call_tpu.constants import GT_HET, lfact_store
-from bs_call_tpu.ops.postprocess import (
+from bs_call_tpu_torch.constants import GT_HET, lfact_store
+from bs_call_tpu_torch.ops.postprocess import (
     _FTAB_MASK_A,
     _FTAB_MASK_B,
     MAC_MASK_A,
     MAC_MASK_B,
     MAC_VALID,
 )
-from bs_call_tpu.output.vector_site import (
+from bs_call_tpu_torch.output.vector_site import (
     _CFLAG_U8,
     _GFLAG_U8,
     _GL_IDX_C,

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from bs_call_tpu.constants import LOG10
+from bs_call_tpu_torch.constants import LOG10
 from bs_call_tpu_torch.ops.kernels.genotype_cuda import (
     genotype_column,
     genotype_pileup,

@@ -41,7 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bs_call_tpu.constants import LOG10
+from bs_call_tpu_torch.constants import LOG10
 from bs_call_tpu_torch.ops.emit_tables import EmitTables
 from bs_call_tpu_torch.ops.kernels.emit_cuda import (
     LAYOUT,

@@ -1,13 +1,15 @@
 """K1, the pileup scatter of `csrc/pileup.cu`, its plain PyTorch version,
-and the fused exact tier: `fused_ll_f64` (K1 -> K2's pileup entry) and
-`fused_ll_emit` (K1 -> K2 -> K3, the emit tier).
+and the fused exact tier: `fused_ll_f64` (K12, the pileup and the f64
+model per position tile) and `fused_ll_emit` (K12 -> K3, the emit tier).
 
 Counterpart of `bs_call_tpu/ops/kernels/pileup_device.py`
 (`device_pileup`, `_agg_quals_f32`, `fused_ll_dd`, `pad_read_batch`) and
 of `emit_device.fused_ll_emit`. The normalised read batch of a block
-crosses to the device once; the pileup, the quality rounding, the f64
-genotype model and (with the emit tier) the emit fields run there, and
-only the call planes, the uint8 quals and the packed fields come back.
+crosses to the device once, its rows sorted by start; the pileup, the
+quality rounding, the f64 genotype model and (with the emit tier) the
+emit fields run there, and only the call planes, the uint8 quals and the
+packed fields come back. K1 and K2's pileup entry, which K12 replaces on
+the fused tier, stay beside it so that both can be timed on one card.
 
 Read batch layout (as in the JAX package):
     rd      [R, L] uint8   (base & 3 | qual << 2), 0-padded
@@ -24,12 +26,16 @@ import ctypes
 import numpy as np
 import torch
 
-from bs_call_tpu.constants import BASE_TAB_ST, FLT_QUAL
+from bs_call_tpu_torch.constants import BASE_TAB_ST, FLT_QUAL
 from bs_call_tpu_torch.ops.emit_tables import EmitTables
-from bs_call_tpu_torch.ops.genotype import call_genotypes_pileup
+from bs_call_tpu_torch.ops.genotype import call_genotypes_pileup_plain
 from bs_call_tpu_torch.ops.kernels import _build
 from bs_call_tpu_torch.ops.kernels.emit_device import emit_fields
 from bs_call_tpu_torch.ops.kernels.genotype_cuda import check_rc, require
+from bs_call_tpu_torch.ops.kernels.pileup_genotype_cuda import (
+    TILE,
+    pileup_genotype,
+)
 from bs_call_tpu_torch.ops.params import ModelTables
 
 _P = ctypes.c_void_p
@@ -147,57 +153,88 @@ def device_pileup(rd, starts, ori, strand, mapq, n_pos: int, min_qual: int):
 
 
 def fused_ll_f64(rd, starts, ori, strand, mapq, ref, n_pos: int,
-                 min_qual: int, tables: ModelTables):
-    """Fused exact tier: read batch -> pileup (K1) -> f32 quality
-    rounding + f64 genotype model + finish (K2's pileup entry), in order
-    on the current stream with no host round-trip. ref [n_pos] int32.
+                 min_qual: int, tables: ModelTables, tiles=None):
+    """Fused exact tier: read batch -> pileup -> f32 quality rounding +
+    f64 genotype model + finish, in order on the current stream with no
+    host round-trip: K12 in one launch for a CUDA batch (rows sorted by
+    start, `tiles` from `tile_rows`), `device_pileup_plain` then
+    `call_genotypes_pileup_plain` for a CPU batch. ref [n_pos] int32.
     Returns (gt_prob [P,10] f64, max_gt [P] i32, margin [P] f64,
     off_sum [P] f64, quals_u8 [P,8])."""
     return _fused(rd, starts, ori, strand, mapq, ref, n_pos, min_qual,
-                  tables)[2]
+                  tables, tiles)[2]
 
 
-def _fused(rd, starts, ori, strand, mapq, ref, n_pos, min_qual, tables):
+def _fused(rd, starts, ori, strand, mapq, ref, n_pos, min_qual, tables,
+           tiles):
+    """(counts2, mapq2_sum, (gt_prob, max_gt, margin, off_sum, quals_u8))"""
     if tables.dtype != torch.float64:
         raise ValueError(
             f"the fused tier needs float64 tables: {tables.dtype}"
         )
-    counts2, qual_sum, mapq2_sum = device_pileup(
-        rd, starts, ori, strand, mapq, n_pos, min_qual
-    )
-    return counts2, mapq2_sum, call_genotypes_pileup(
-        counts2, qual_sum, ref, tables
-    )
+    kind = rd.device.type
+    if kind == "cpu":
+        counts2, qual_sum, mapq2_sum = device_pileup_plain(
+            rd, starts, ori, strand, mapq, n_pos, min_qual
+        )
+        return counts2, mapq2_sum, call_genotypes_pileup_plain(
+            counts2, qual_sum, ref, tables
+        )
+    if kind == "cuda":
+        if tiles is None:
+            raise ValueError("K12 needs the tile table of tile_rows")
+        counts2, _qual_sum, mapq2_sum, *out = pileup_genotype(
+            rd, starts, ori, strand, mapq, tiles, ref, n_pos, min_qual,
+            tables,
+        )
+        return counts2, mapq2_sum, tuple(out)
+    raise ValueError(f"no fused-tier kernel for device {rd.device}")
 
 
 def fused_ll_emit(rd, starts, ori, strand, mapq, ref, n_pos: int,
                   min_qual: int, tables: ModelTables, emit: EmitTables,
-                  quirk: bool = True):
+                  quirk: bool = True, tiles=None):
     """The emit tier: `fused_ll_f64`'s outputs plus the chunk's packed
-    emit fields (`emit_device.unpack_fields`), K1 -> K2 -> K3 in order on
-    the current stream with no host round-trip (the plain versions for a
+    emit fields (`emit_device.unpack_fields`), K12 -> K3 in order on the
+    current stream with no host round-trip (the plain versions for a
     CPU batch). Returns (gt_prob, max_gt, margin, off_sum, quals_u8,
     packed uint8 [n_pos * ROW_BYTES])."""
     counts2, mapq2_sum, out = _fused(
-        rd, starts, ori, strand, mapq, ref, n_pos, min_qual, tables
+        rd, starts, ori, strand, mapq, ref, n_pos, min_qual, tables, tiles
     )
     packed = emit_fields(*out[:4], counts2, mapq2_sum, ref, emit, quirk)
     return (*out, packed)
 
 
+def tile_rows(starts, n_rows: int, n_pos: int, l_cap: int):
+    """K12's tile table: int32 [ceil(n_pos / TILE), 2], for each tile of
+    TILE positions the first row and one past the last row whose span
+    [start, start + l_cap) meets it. `starts` are a padded batch's, whose
+    first n_rows are live and sorted (`pad_read_batch`)."""
+    live = np.asarray(starts[:n_rows], dtype=np.int64)
+    t0 = np.arange(0, n_pos, TILE, dtype=np.int64)
+    out = np.empty((len(t0), 2), np.int32)
+    out[:, 0] = np.searchsorted(live, t0 - l_cap, side="right")
+    out[:, 1] = np.searchsorted(live, t0 + TILE, side="left")
+    return out
+
+
 def pad_read_batch(reads: dict, lo: int, hi: int, r_pad: int, l_cap: int):
     """Slice a block's read batch to the rows that can touch positions
-    [lo, hi] (block-relative), shift starts to lo, and pad to the fixed
-    (r_pad, l_cap) device shape. Returns (rd, starts, ori, strand, mapq)
-    or None when the live rows exceed r_pad / l_cap (caller falls back).
-    Padding rows are all-zero bytes: q==0 is never live, so they
-    contribute to no segment regardless of their start."""
+    [lo, hi] (block-relative), sort them by start (stable), shift starts
+    to lo, and pad to the fixed (r_pad, l_cap) device shape. Returns (rd,
+    starts, ori, strand, mapq) or None when the live rows exceed r_pad /
+    l_cap (caller falls back). The pileup sums are integers, so the order
+    of the rows changes no bit; K12 needs it to find a tile's rows
+    (`tile_rows`). Padding rows are all-zero bytes: q==0 is never live, so
+    they contribute to no segment regardless of their start."""
     starts = reads["starts"]
     lens = reads["lens"]
-    keep = (starts <= hi) & (starts + lens - 1 >= lo)
-    n = int(keep.sum())
+    keep = np.nonzero((starts <= hi) & (starts + lens - 1 >= lo))[0]
+    n = len(keep)
     if n > r_pad or reads["rd"].shape[1] > l_cap:
         return None
+    keep = keep[np.argsort(starts[keep], kind="stable")]
     L = reads["rd"].shape[1]
     rd = np.zeros((r_pad, l_cap), np.uint8)
     rd[:n, :L] = reads["rd"][keep]

@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from bs_call_tpu.ops.tables import NONINF_SEL, qual_tables, ref_prior_matrix
+from bs_call_tpu_torch.ops.tables import NONINF_SEL, qual_tables, ref_prior_matrix
 
 
 @dataclass(frozen=True)

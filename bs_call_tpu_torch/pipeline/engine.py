@@ -1,20 +1,22 @@
 """Calling engine on a PyTorch device.
 
-`TorchCallEngine` keeps the host logic of `bs_call_tpu`'s `CallEngine`
-(`call_block_soa`, the C-style finish and scalar-oracle rescue of
-`_finish_exact`, the host Fisher strand test) and replaces its device
-tiers with PyTorch ones on the device the caller passes:
+`TorchCallEngine` maps a block's pileup (and, in exact mode, its read
+batch) to per-position calls. It holds the host logic of the reference's
+call path (`call_block_soa`, the C-style finish and scalar-oracle rescue
+of `_finish_exact`, the host Fisher strand test) and runs the device tiers
+on the device the caller passes:
 
 * fused tier (exact mode): the block's read batch crosses to the device
-  once, K1 builds the pileup and K2 runs the f64 model on it; the host
-  compares the device quals with its own aggregate and sends rows that
-  differ to the oracle. With the emit tier (`BS_CALL_EMIT_TIER`, on
-  unless set to 0, read once at construction as the JAX engine reads
-  it), K3 also computes the emit fields on the device (`fused_ll_emit`)
-  and they come back in one packed copy as `soa["dev_prep"]`: the
-  emitter uses every row K3 did not flag and recomputes the rest on the
-  host, as does the host Fisher test; with it off (`fused_ll_f64`) the
-  host computes Fisher and the emit fields for every row;
+  once, sorted by start, and K12 builds the pileup and runs the f64 model
+  on each tile of positions in one launch; the host compares the device
+  quals with its own aggregate and sends rows that differ to the oracle.
+  With the emit tier (`BS_CALL_EMIT_TIER`, on unless set to 0, read once
+  at construction), K3 also computes the emit fields on the device
+  (`fused_ll_emit`) and they come back in one packed copy as
+  `soa["dev_prep"]`: the emitter uses every row K3 did not flag and
+  recomputes the rest on the host, as does the host Fisher test; with it
+  off (`fused_ll_f64`) the host computes Fisher and the emit fields for
+  every row;
 * column tier: host-built pileup columns go through K2, in f64 (exact)
   or f32 (`--no-exact`), in chunks of `batch_positions`, in order on the
   current stream.
@@ -28,11 +30,14 @@ device and are counted in `tier_positions`.
 
 from __future__ import annotations
 
+from typing import List, Optional
+
 import numpy as np
 import torch
 
-from bs_call_tpu.config import CallerConfig
-from bs_call_tpu.pipeline.engine import CallEngine
+from bs_call_tpu_torch.config import CallerConfig
+from bs_call_tpu_torch.constants import LOG10
+from bs_call_tpu_torch.ops import oracle
 from bs_call_tpu_torch.ops.emit_tables import emit_tables
 from bs_call_tpu_torch.ops.genotype import call_genotypes
 from bs_call_tpu_torch.ops.kernels.emit_device import (
@@ -43,19 +48,29 @@ from bs_call_tpu_torch.ops.kernels.pileup_device import (
     fused_ll_emit,
     fused_ll_f64,
     pad_read_batch,
+    tile_rows,
 )
 from bs_call_tpu_torch.ops.params import ModelParams, model_tables
+from bs_call_tpu_torch.ops.postprocess import aggregate_pileup, fisher_strand
+from bs_call_tpu_torch.output.site import SiteCall
+from bs_call_tpu_torch.utils import env_flag
 
 TIERS = ("fused", "column", "oracle", "shape_reroute", "quals_reroute",
          "emit", "emit_risk")
 
 
-class TorchCallEngine(CallEngine):
-    """CallEngine whose device tiers run on `device` (cuda or cpu)."""
+class TorchCallEngine:
+    """Maps (counts2, qual_sum, mapq2_sum, ref) blocks to per-position
+    calls, with its device tiers on `device` (cuda or cpu)."""
+
+    # extra padded positions beyond batch_positions: runner tail chunks
+    # carry up to 16 overlap rows
+    _FUSED_PAD = 64
 
     def __init__(self, cfg: CallerConfig, device: torch.device):
-        super().__init__(cfg)
+        self.cfg = cfg
         self.device = device
+        self.tracer = None  # set by the runner for -v observability
         params = ModelParams(
             under_conv=cfg.under_conv,
             over_conv=cfg.over_conv,
@@ -64,6 +79,7 @@ class TorchCallEngine(CallEngine):
         dtype = torch.float64 if cfg.exact else torch.float32
         self._tables = model_tables(params, dtype, device)
         self._emit_tables = emit_tables(device)
+        self._emit_tier = env_flag("BS_CALL_EMIT_TIER", default=True)
         # positions called per tier: fused / column are the device tiers,
         # oracle the rows rescued by the scalar oracle, the *_reroute
         # entries the covered positions the fused tier handed back; emit
@@ -71,18 +87,17 @@ class TorchCallEngine(CallEngine):
         # emit_risk those of them flagged for the host
         self.tier_positions = dict.fromkeys(TIERS, 0)
 
-    @property
-    def _jax(self):
-        raise RuntimeError("bs_call_tpu_torch never runs the JAX engines")
-
-    def _prefer_xla_f64(self) -> bool:
-        return False
-
     def wants_reads(self) -> bool:
+        """Should the runner export per-block read batches? In exact mode
+        the fused tier takes every chunk whose shape it accepts."""
         return self.cfg.exact
 
-    def _fused_gate(self, reads, lo, hi, ref_codes, agg, covered_idx):
-        return self.cfg.exact
+    @staticmethod
+    def _pow2(n: int, lo: int) -> int:
+        p = lo
+        while p < n:
+            p *= 2
+        return p
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -108,25 +123,27 @@ class TorchCallEngine(CallEngine):
                 ((starts <= hi) & (starts + reads["lens"] - 1 >= lo)).sum()
             )
             r_pad = self._pow2(max(n_rows, 1), 1024)
-            padded = pad_read_batch(reads, lo, hi, r_pad, self._pow2(L, 64))
+            l_cap = self._pow2(L, 64)
+            padded = pad_read_batch(reads, lo, hi, r_pad, l_cap)
         if padded is None:
             self._reroute("shape", n_cov, f"{sz} positions, reads {L} long")
             return None
         ref_pad = np.zeros(n_pos, np.int32)
         ref_pad[:sz] = np.asarray(ref_codes, dtype=np.int32)
         args = [self._to_device(a) for a in (*padded, ref_pad)]
+        kw = dict(n_pos=n_pos, min_qual=self.cfg.min_qual,
+                  tables=self._tables,
+                  tiles=self._to_device(
+                      tile_rows(padded[1], n_rows, n_pos, l_cap)
+                  ))
         packed = None
         if self._emit_tier:
             *out, packed = fused_ll_emit(
-                *args, n_pos=n_pos, min_qual=self.cfg.min_qual,
-                tables=self._tables, emit=self._emit_tables,
+                *args, **kw, emit=self._emit_tables,
                 quirk=self.cfg.reference_quirks,
             )
         else:
-            out = fused_ll_f64(
-                *args, n_pos=n_pos, min_qual=self.cfg.min_qual,
-                tables=self._tables,
-            )
+            out = fused_ll_f64(*args, **kw)
         idx = self._to_device(covered_idx.astype(np.int64))
         gt_prob, max_gt, margin, off, dev_q = (
             t.index_select(0, idx).cpu().numpy() for t in out
@@ -185,10 +202,129 @@ class TorchCallEngine(CallEngine):
 
     def _finish_exact(self, gt_prob, max_gt, margin, off, counts, quals,
                       ref):
+        """C-style max-entry replacement (absorbing 1+off) so the GQ
+        phred chain reproduces the reference's double-precision
+        quantization, plus (exact mode) the scalar-oracle rescue of true
+        ties / libm-ulp boundaries (same libm as the C binary); the
+        oracle's gt_prob is already C-style."""
+        idx = np.arange(len(max_gt))
+        gt_prob[idx, max_gt] = -np.log(1.0 + off) / LOG10
         if self.cfg.exact:
-            self.tier_positions["oracle"] += int(
-                (margin < TIE_MARGIN).sum()
-            )
-        return super()._finish_exact(
-            gt_prob, max_gt, margin, off, counts, quals, ref
+            ties = margin < TIE_MARGIN
+            self.tier_positions["oracle"] += int(ties.sum())
+            for j in np.nonzero(ties)[0]:
+                gt_prob[j], max_gt[j] = oracle.calc_gt_prob(
+                    counts[j], quals[j], int(ref[j]),
+                    self.cfg.under_conv, self.cfg.over_conv,
+                    self.cfg.ref_bias,
+                )
+        return gt_prob, max_gt, margin, off
+
+    def call_block_soa(self, counts2, qual_sum, mapq2_sum, ref_codes,
+                       agg=None, reads=None):
+        """counts2 [sz,2,8], qual_sum [sz,8], mapq2_sum [sz],
+        ref_codes [sz]. Returns a dict of position-major arrays:
+        covered [sz] bool; counts [sz,8]; quals [sz,8]; mq, aq [sz];
+        gt_prob [sz,10] f64; max_gt [sz]; fs [sz] f64; and, when the
+        emit tier carried the chunk, dev_prep (the device emit fields).
+        `agg` may carry natively precomputed aggregates. `reads`, when
+        given, is (read_batch_dict, lo) with lo the block-relative
+        offset of this window's first position: it enables the fused
+        tier (reads cross H2D instead of pileup columns)."""
+        if agg is None:
+            agg = aggregate_pileup(counts2, qual_sum, mapq2_sum)
+        counts = agg["counts"]
+        sz = len(agg["n"])
+        covered_mask = agg["n"] > 0
+        covered = np.nonzero(covered_mask)[0]
+        gt_prob_full = np.zeros((sz, 10), dtype=np.float64)
+        max_gt_full = np.zeros(sz, dtype=np.int32)
+        fs_full = np.zeros(sz, dtype=np.float64)
+        prep = None
+        if len(covered):
+            ccounts = counts[covered].astype(np.int32)
+            cquals = agg["quals"][covered]
+            cref = np.asarray(ref_codes, dtype=np.int32)[covered]
+            res = None
+            if reads is not None and self.cfg.exact:
+                rd_dict, lo = reads
+                res = self._call_fused(
+                    rd_dict, lo, lo + sz - 1, ref_codes, agg, covered
+                )
+                if res is not None:
+                    prep = res[4]
+                    res = self._finish_exact(*res[:4], ccounts, cquals, cref)
+            if res is None:
+                res = self._call_batch(ccounts, cquals, cref)
+            gt_prob, max_gt, margin, _off = res
+            gt_prob_full[covered] = gt_prob
+            max_gt_full[covered] = max_gt
+            if prep is not None:
+                # host-side staleness: any row the exact tiers rescued
+                # (ll tie / quals mismatch -> margin 0, or a changed
+                # winner) invalidates its own prep AND its neighbours'
+                # CG context; the device fs then carries only rows the
+                # guard bands certify, the host Fisher test the rest
+                risk = prep["risk"].copy()
+                final_gt1 = np.where(
+                    covered_mask, max_gt_full + 1, 0
+                ).astype(prep["gt1"].dtype)
+                changed = prep["gt1"] != final_gt1
+                risk |= changed
+                risk[:-1] |= changed[1:]
+                risk[1:] |= changed[:-1]
+                mfull = np.full(sz, np.inf)
+                mfull[covered] = margin
+                risk |= covered_mask & (mfull < 1e-8)
+                prep["risk"] = risk
+                fs_w = (prep["fs_hi"].astype(np.float64)
+                        + prep["fs_lo"].astype(np.float64))
+                fs_w[~covered_mask] = 0.0
+                rc = np.nonzero(covered_mask & risk)[0]
+                if len(rc):
+                    fs_w[rc] = fisher_strand(
+                        counts2[rc], max_gt_full[rc],
+                        not self.cfg.reference_quirks,
+                    )
+                fs_full[:] = fs_w
+            else:
+                fs_full[covered] = fisher_strand(
+                    counts2[covered], max_gt,
+                    not self.cfg.reference_quirks,
+                )
+        soa = {
+            "covered": covered_mask,
+            "counts": counts,
+            "quals": agg["quals"],
+            "mq": agg["mq"],
+            "aq": agg["aq"],
+            "gt_prob": gt_prob_full,
+            "max_gt": max_gt_full,
+            "fs": fs_full,
+        }
+        if prep is not None:
+            soa["dev_prep"] = prep
+        return soa
+
+    def call_block(self, counts2, qual_sum, mapq2_sum, ref_codes, agg=None):
+        """Object view of call_block_soa for the scalar emitter path."""
+        return soa_to_calls(self.call_block_soa(
+            counts2, qual_sum, mapq2_sum, ref_codes, agg=agg
+        ))
+
+
+def soa_to_calls(soa) -> List[Optional[SiteCall]]:
+    """Per-position SiteCall objects from a call_block_soa result (the
+    scalar emitter's input shape)."""
+    out: List[Optional[SiteCall]] = [None] * len(soa["covered"])
+    for j in np.nonzero(soa["covered"])[0]:
+        out[j] = SiteCall(
+            counts=soa["counts"][j],
+            quals=soa["quals"][j],
+            gt_prob=soa["gt_prob"][j],
+            fisher_strand=soa["fs"][j],
+            mq=int(soa["mq"][j]),
+            aq=int(soa["aq"][j]),
+            max_gt=int(soa["max_gt"][j]),
         )
+    return out

@@ -91,7 +91,7 @@ def wgbs_want(wgbs):
 @pytest.fixture
 def splice_hits(monkeypatch):
     """Counts the emitter's calls that used device emit fields."""
-    import bs_call_tpu.output.vector_site as vs
+    import bs_call_tpu_torch.output.vector_site as vs
 
     hits = {"n": 0}
     orig = vs._splice_dev_prep
