@@ -1,0 +1,253 @@
+// The 10-genotype bisulfite likelihood model and its finish, as device
+// functions shared by K2 (genotype.cu, one thread per position) and K12
+// (pileup_genotype.cu, two threads per position). Same math as
+// bs_call_tpu_torch/ops/genotype.py (genotype_model.c:23-246).
+//
+// The model splits into two halves that share nothing but the inputs:
+// the C->T half (categories 5 and 7, get_Z on counts 5 and 7) and the
+// G->A half (categories 6 and 4, get_Z on counts 6 and 4), three safe logs
+// per category (`half_logs`). `accumulate` then adds every category's
+// terms to the prior in the reference's order, so one thread that
+// computes both halves (K2) and two threads that compute one half each and
+// swap them (K12) give the same bits. Each log is computed only where its
+// category count is > 0, as the reference does.
+//
+// Semantics kept from the reference: get_Z replaces a zero denominator
+// with 1 and clips to [-1,1]; the safe log is log(max(x, FLT_MIN or
+// DBL_MIN)); argmax keeps the first maximum (strict >); margin is best
+// minus runner-up (a tie gives 0, which sends the row to the scalar
+// oracle on the host); off_sum = sum_{g != max} exp(ll_g - max), summed in
+// genotype order; gt_prob = (ll - max - log1p(off_sum)) / ln 10.
+
+#pragma once
+
+#include <cfloat>
+#include <cmath>
+
+namespace {  // each source that includes this keeps its own copy
+
+// NONINF_SEL (bs_call_tpu_torch/ops/tables.py): 2 -> ln(1+k),
+// 1 -> ln(.5+k), 0 -> ln k, for observed base A,C,G,T and each genotype
+__constant__ signed char kSel[4][10] = {
+    {2, 1, 1, 1, 0, 0, 0, 0, 0, 0},
+    {0, 1, 0, 0, 2, 1, 1, 0, 0, 0},
+    {0, 0, 1, 0, 0, 1, 0, 2, 1, 0},
+    {0, 0, 0, 1, 0, 0, 1, 0, 1, 2},
+};
+
+}  // namespace
+
+namespace bsct {
+
+constexpr int kNQ = 44;  // MAX_QUAL + 1
+constexpr int kNG = 10;  // genotypes AA AC AG AT CC CG CT GG GT TT
+constexpr double kLn10 = 2.30258509299404568402;
+
+__device__ __forceinline__ float mlog(float x) { return logf(x); }
+__device__ __forceinline__ double mlog(double x) { return log(x); }
+__device__ __forceinline__ float mexp(float x) { return expf(x); }
+__device__ __forceinline__ double mexp(double x) { return exp(x); }
+__device__ __forceinline__ float mlog1p(float x) { return log1pf(x); }
+__device__ __forceinline__ double mlog1p(double x) { return log1p(x); }
+__device__ __forceinline__ float mtiny(float) { return FLT_MIN; }
+__device__ __forceinline__ double mtiny(double) { return DBL_MIN; }
+
+template <typename T>
+__device__ __forceinline__ T safe_log(T x) {
+  return mlog(fmax(x, mtiny(x)));
+}
+
+template <typename T>
+__device__ __forceinline__ T clip1(T x) {
+  return fmin(fmax(x, T(-1)), T(1));
+}
+
+// get_Z (genotype_model.c:23-42): z[0..2] for the three (w, p) cases.
+// Constants are formed in double and rounded to T once, exactly as the
+// plain version's Python scalars are.
+template <typename T>
+__device__ __forceinline__ void get_z(T x1, T x2, T k1, T k2, double l,
+                                      double t, T z[3]) {
+  const double lpt = l + t;
+  const double lmt = l - t;
+  T d = (x1 + x2) * T(lmt);
+  if (d == T(0)) d = T(1);
+  const T a1[3] = {T(lpt) + T(2) * k2, T(2.0 + lpt) + T(4) * k2,
+                   T(lpt) + T(4) * k2};
+  const T a2[3] = {T(2.0 - lpt) + T(2) * k1, T(2.0 - lpt) + T(4) * k1,
+                   T(2.0 - lpt) + T(4) * k1};
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const T s = clip1((x1 * a1[j] - x2 * a2[j]) / d);
+    z[j] = T(0.5) * (T(lmt) * s + T(2) - T(lpt));
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void add_cat(T ll[kNG], T ni, const T coef[kNG]) {
+  if (ni > T(0)) {
+#pragma unroll
+    for (int g = 0; g < kNG; ++g) ll[g] = ll[g] + ni * coef[g];
+  }
+}
+
+// One half of the methylation-informative terms. With z = get_Z(nA, nB,
+// kA, kB), a = {log(z2/2+kA), log(z0+kA), log(z1/2+kA)} when nA > 0 and
+// b = {log((1-z2)/2+kB), log(1-z0+kB), log(1-z1/2+kB)} when nB > 0.
+// The C->T half is (nA, nB) = (n5, n7), the G->A half (n6, n4): the same
+// code on other inputs, so two threads of one warp can run the two halves
+// without diverging.
+template <typename T>
+__device__ __forceinline__ void half_logs(T nA, T nB, T kA, T kB, double l,
+                                          double t, T a[3], T b[3]) {
+  T z[3];
+  get_z(nA, nB, kA, kB, l, t, z);
+  const T one = T(1), half = T(0.5);
+  if (nA > T(0)) {
+    a[0] = safe_log(half * z[2] + kA);
+    a[1] = safe_log(z[0] + kA);
+    a[2] = safe_log(half * z[1] + kA);
+  }
+  if (nB > T(0)) {
+    b[0] = safe_log(half * (one - z[2]) + kB);
+    b[1] = safe_log(one - z[0] + kB);
+    b[2] = safe_log(one - half * z[1] + kB);
+  }
+}
+
+// the quality-table row of each category: k, ln k, ln(k+1/2), ln(k+1)
+template <typename T>
+__device__ __forceinline__ void qual_terms(const int q[8], const T* s_tab,
+                                           T k[8], T lnk[8], T lnkh[8],
+                                           T lnk1[8]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const T* row = s_tab + q[c] * 4;
+    k[c] = row[0];
+    lnk[c] = row[1];
+    lnkh[c] = row[2];
+    lnk1[c] = row[3];
+  }
+}
+
+// ll [10] = prior + every category's terms, in the reference's order;
+// c5/c7 are the C->T half's a/b, c6/c4 the G->A half's a/b
+template <typename T>
+__device__ __forceinline__ void accumulate(
+    const T n[8], const T lnk[8], const T lnkh[8], const T lnk1[8],
+    const T* prior_row, const T c5[3], const T c7[3], const T c6[3],
+    const T c4[3], T ll[kNG]) {
+#pragma unroll
+  for (int g = 0; g < kNG; ++g) ll[g] = prior_row[g];
+
+  // non-informative categories (genotype_model.c:109-164)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    T coef[kNG];
+#pragma unroll
+    for (int g = 0; g < kNG; ++g) {
+      const int s = kSel[i][g];
+      coef[g] = s == 2 ? lnk1[i] : (s == 1 ? lnkh[i] : lnk[i]);
+    }
+    add_cat(ll, n[i], coef);
+  }
+
+  // methylation-informative categories (genotype_model.c:165-230)
+  if (n[4] > T(0)) {
+    const T c[kNG] = {lnk1[4], lnkh[4], c4[2], lnkh[4], lnk[4],
+                      c4[0],   lnk[4],  c4[1], c4[0],   lnk[4]};
+    add_cat(ll, n[4], c);
+  }
+  if (n[5] > T(0)) {
+    const T c[kNG] = {lnk[5], c5[0], lnk[5], lnk[5], c5[1],
+                      c5[0],  c5[2], lnk[5], lnk[5], lnk[5]};
+    add_cat(ll, n[5], c);
+  }
+  if (n[6] > T(0)) {
+    const T c[kNG] = {lnk[6], lnk[6], c6[2], lnk[6], lnk[6],
+                      c6[0],  lnk[6], c6[1], c6[0],  lnk[6]};
+    add_cat(ll, n[6], c);
+  }
+  if (n[7] > T(0)) {
+    const T c[kNG] = {lnk[7], c7[0], lnk[7], lnkh[7], c7[1],
+                      c7[0],  c7[2], lnk[7], lnkh[7], lnk1[7]};
+    add_cat(ll, n[7], c);
+  }
+}
+
+// ll [10] for one position from counts n[8], clamped quals q[8], ref.
+template <typename T>
+__device__ __forceinline__ void model(const T n[8], const int q[8], int ref,
+                                      const T* s_tab, const T* s_prior,
+                                      double l, double t, T ll[kNG]) {
+  T k[8], lnk[8], lnkh[8], lnk1[8];
+  qual_terms(q, s_tab, k, lnk, lnkh, lnk1);
+  T c5[3], c7[3], c6[3], c4[3];
+  half_logs(n[5], n[7], k[5], k[7], l, t, c5, c7);
+  half_logs(n[6], n[4], k[6], k[4], l, t, c6, c4);
+  accumulate(n, lnk, lnkh, lnk1, s_prior + ref * kNG, c5, c7, c6, c4, ll);
+}
+
+// first-maximum argmax of ll
+template <typename T>
+__device__ __forceinline__ int argmax(const T ll[kNG], T* best) {
+  int mx = 0;
+  T b = ll[0];
+#pragma unroll
+  for (int g = 1; g < kNG; ++g) {
+    if (ll[g] > b) {
+      b = ll[g];
+      mx = g;
+    }
+  }
+  *best = b;
+  return mx;
+}
+
+// argmax / margin / off_sum / log10 posteriors (genotype_model.c:231-245)
+template <typename T>
+__device__ __forceinline__ void finish(const T ll[kNG], long long i,
+                                       T* gt_prob, int* max_gt, T* margin,
+                                       T* off_sum) {
+  T best;
+  const int mx = argmax(ll, &best);
+  T second = T(-INFINITY);
+  T off = T(0);
+#pragma unroll
+  for (int g = 0; g < kNG; ++g) {
+    if (g != mx) {
+      second = fmax(second, ll[g]);
+      off = off + mexp(ll[g] - best);
+    }
+  }
+  const T s = mlog1p(off);
+#pragma unroll
+  for (int g = 0; g < kNG; ++g) {
+    gt_prob[i * kNG + g] = (ll[g] - best - s) / T(kLn10);
+  }
+  max_gt[i] = mx;
+  margin[i] = best - second;
+  off_sum[i] = off;
+}
+
+template <typename T>
+__device__ __forceinline__ void load_tables(const T* tab, const T* prior,
+                                            T* s_tab, T* s_prior) {
+  for (int j = threadIdx.x; j < kNQ * 4; j += blockDim.x) s_tab[j] = tab[j];
+  for (int j = threadIdx.x; j < 5 * kNG; j += blockDim.x)
+    s_prior[j] = prior[j];
+}
+
+__device__ __forceinline__ int clamp_int(int v, int lo, int hi) {
+  return min(max(v, lo), hi);
+}
+
+// _agg_quals_f32: floorf(0.5f + qual_sum / (float)count), each step
+// rounded to nearest in f32 (never --use_fast_math); 0 where count == 0
+__device__ __forceinline__ int round_qual(float qual_sum, int count) {
+  if (count <= 0) return 0;
+  return (int)floorf(
+      __fadd_rn(0.5f, __fdiv_rn(qual_sum, __int2float_rn(count))));
+}
+
+}  // namespace bsct

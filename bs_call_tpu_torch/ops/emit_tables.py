@@ -1,9 +1,10 @@
 """Lookup tables of the emit tier as tensors on the caller's device.
 
-Every table is the JAX package's own numpy array, carried across
-unchanged, so the host emitter (`bsc_emit.cpp`, fed from
-`output/vector_site.py`), the JAX emit tier and the port read one source
-of truth:
+Every table is the host side's own numpy array (this package's copy of
+`bs_call_tpu`'s), carried across unchanged, so the host emitter
+(`bsc_emit.cpp`, fed from `output/vector_site.py`) and the device emit
+tier read one source of truth (`tests/test_torch_emit.py` holds them to
+the JAX package's):
 
     het        [10]    bool   GT_HET (constants.py)
     ftab_a/_b  [10,8]  int64  Fisher 2x2 column categories per genotype

@@ -1,30 +1,15 @@
-"""Native (C++/libm) float64 genotype model wrapper.
+"""The host's thread budget, at the JAX package's module path.
 
-The default exact-mode engine on the host CPU: one batched call into
-bsc_model.cpp replaces the XLA-jitted f64 kernel — no jax import, no
-XLA compile, and glibc libm transcendentals (the same libm the
-reference binary links, genotype_model.c:87-247). Math twins:
-ops/genotype_np.py (numpy, vectorized) and ops/oracle.py (the scalar
-parity anchor). Randomized three-way parity is enforced by
-tests/test_native_model.py.
-
-Threading: the batch is split into contiguous ranges across C++
-threads (deterministic for any thread count); the thread count follows
-this process's CPU affinity so shard workers pinned to one core don't
-oversubscribe.
+`bs_call_tpu.ops.genotype_native` wraps the native f64 model
+(bsc_model.cpp) and sizes every native thread pool with `_n_threads`.
+This package calls its model on the device, so it keeps only the thread
+budget: this process's CPU affinity, so that a process pinned to a few
+cores does not oversubscribe them.
 """
 
 from __future__ import annotations
 
-import ctypes
 import os
-
-import numpy as np
-
-from bs_call_tpu_torch.ops.tables import qual_tables, ref_prior_matrix
-
-_f64p = ctypes.POINTER(ctypes.c_double)
-_i32p = ctypes.POINTER(ctypes.c_int32)
 
 
 def _n_threads() -> int:
@@ -32,87 +17,3 @@ def _n_threads() -> int:
         return len(os.sched_getaffinity(0))
     except (AttributeError, OSError):
         return os.cpu_count() or 1
-
-
-class NativeGtModel:
-    """Owns one bsc_model handle for a fixed (under, over, ref_bias)."""
-
-    def __init__(self, lib, under_conv: float, over_conv: float,
-                 ref_bias: float):
-        self._lib = lib
-        qt = qual_tables(np.float64)
-        prior = np.ascontiguousarray(
-            ref_prior_matrix(ref_bias, np.float64)
-        )
-        # keep the table arrays alive for the C call duration only:
-        # bsc_model_new copies them
-        self._h = lib.bsc_model_new(
-            len(qt.k),
-            qt.k.ctypes.data_as(_f64p),
-            qt.ln_k.ctypes.data_as(_f64p),
-            qt.ln_k_half.ctypes.data_as(_f64p),
-            qt.ln_k_one.ctypes.data_as(_f64p),
-            prior.ctypes.data_as(_f64p),
-            ctypes.c_double(under_conv),
-            ctypes.c_double(over_conv),
-        )
-
-    def __del__(self):
-        h, self._h = getattr(self, "_h", None), None
-        if h:
-            try:
-                self._lib.bsc_model_free(h)
-            except Exception:
-                pass
-
-    def call(self, counts, quals, ref):
-        """counts [N,8] i32, quals [N,8] i32, ref [N] i32 ->
-        (gt_prob [N,10] f64 log10, max_gt [N] i32, margin [N] f64,
-        off_sum [N] f64) — the call_genotypes_np contract (the argmax
-        entry of gt_prob is -log1p(off)/LOG10; the engine's
-        _finish_exact replaces it C-style)."""
-        counts = np.ascontiguousarray(counts, dtype=np.int32)
-        quals = np.ascontiguousarray(quals, dtype=np.int32)
-        ref = np.ascontiguousarray(ref, dtype=np.int32)
-        n = len(ref)
-        gt_prob = np.empty((n, 10), dtype=np.float64)
-        max_gt = np.empty(n, dtype=np.int32)
-        margin = np.empty(n, dtype=np.float64)
-        off_sum = np.empty(n, dtype=np.float64)
-        if n:
-            self._lib.bsc_model_call(
-                self._h, n,
-                counts.ctypes.data_as(_i32p),
-                quals.ctypes.data_as(_i32p),
-                ref.ctypes.data_as(_i32p),
-                _n_threads(),
-                gt_prob.ctypes.data_as(_f64p),
-                max_gt.ctypes.data_as(_i32p),
-                margin.ctypes.data_as(_f64p),
-                off_sum.ctypes.data_as(_f64p),
-            )
-        return gt_prob, max_gt, margin, off_sum
-
-
-_cache: dict = {}
-
-
-def native_model(under_conv: float, over_conv: float,
-                 ref_bias: float):
-    """Process-cached NativeGtModel, or None when the native library is
-    unavailable (missing toolchain) or BS_CALL_PY_MODEL=1 forces the
-    Python engines (the parity-test switch)."""
-    if os.environ.get("BS_CALL_PY_MODEL"):
-        return None
-    key = (under_conv, over_conv, ref_bias)
-    if key in _cache:
-        return _cache[key]
-    from bs_call_tpu_torch import native
-
-    lib = native.load()
-    model = (
-        NativeGtModel(lib, under_conv, over_conv, ref_bias)
-        if lib is not None else None
-    )
-    _cache[key] = model
-    return model

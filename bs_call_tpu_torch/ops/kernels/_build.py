@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-Every `csrc/*.cu` of this package is compiled with `nvcc` for sm_90a, one
+Every `csrc/*.cu` of this package (with the `csrc/*.cuh` headers they
+include) is compiled with `nvcc` for sm_90a, one
 `nvcc -c` per source, all started together, and linked into one shared
 library with a plain C interface, on first use, and loaded with
 `ctypes`. The library lands in `bs_call_tpu_torch/build/<hash>/`,
@@ -56,9 +57,13 @@ def sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def headers():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def _key(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for p in srcs:
+    for p in [*srcs, *headers()]:
         h.update(os.path.basename(p).encode())
         with open(p, "rb") as f:
             h.update(f.read())

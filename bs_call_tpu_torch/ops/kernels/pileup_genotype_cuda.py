@@ -54,8 +54,8 @@ def _kernels():
 
 def pileup_genotype(rd, starts, ori, strand, mapq, tiles, ref, n_pos: int,
                     min_qual: int, tables: ModelTables):
-    """rd [R, L] u8 (L a multiple of 16), starts/ori/strand/mapq [R] i32
-    with the live rows sorted by start, tiles [ceil(n_pos/TILE), 2] i32
+    """rd [R, L] u8 (L a multiple of 16, at most 2048), starts/ori/
+    strand/mapq [R] i32 with the live rows sorted by start, tiles [ceil(n_pos/TILE), 2] i32
     (`pileup_device.tile_rows`), ref [n_pos] i32 -> (counts2 [n_pos,2,8]
     i32, qual_sum [n_pos,8] f32, mapq2_sum [n_pos] f32, gt_prob
     [n_pos,10], max_gt [n_pos] i32, margin [n_pos], off_sum [n_pos],
@@ -77,8 +77,11 @@ def pileup_genotype(rd, starts, ori, strand, mapq, tiles, ref, n_pos: int,
     require(ref, "ref", torch.int32, (n_pos,), dev)
     require(tables.qual, "tables.qual", tables.dtype, (44, 4), dev)
     require(tables.prior, "tables.prior", tables.dtype, (5, 10), dev)
-    if L % 16 or rd.data_ptr() % 16:
-        raise ValueError("rd: rows must be a multiple of 16 bytes, aligned")
+    if not 16 <= L <= 2048 or L % 16 or rd.data_ptr() % 16:
+        raise ValueError(
+            f"rd: rows of {L} bytes; K12 takes 16..2048, a multiple of 16, "
+            "16-byte aligned"
+        )
     i32, dt = torch.int32, tables.dtype
     out = (
         torch.empty((n_pos, 2, 8), dtype=i32, device=dev),

@@ -3,9 +3,9 @@
 This module is the numerical ground truth for the framework: a direct,
 unoptimized float64 transcription of the reference math
 (genotype_model.c:23-246, stats_utils.c:25-91, call_genotypes.c:43-115).
-The vectorized JAX kernels are validated against it in tests, and the
-runtime uses it as the "rescue" path to recompute positions whose float32
-result lies too close to a rounding/argmax decision boundary.
+The device kernels are validated against it in tests, and the runtime
+uses it as the "rescue" path to recompute positions whose likelihoods lie
+too close to an argmax decision boundary.
 """
 
 from __future__ import annotations

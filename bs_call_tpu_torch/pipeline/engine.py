@@ -86,6 +86,7 @@ class TorchCallEngine:
         # the covered positions that came back with device emit fields,
         # emit_risk those of them flagged for the host
         self.tier_positions = dict.fromkeys(TIERS, 0)
+        self.fused_chunks = 0  # chunks the fused tier carried
 
     def wants_reads(self) -> bool:
         """Should the runner export per-block read batches? In exact mode
@@ -157,6 +158,7 @@ class TorchCallEngine:
             return None
         margin[mism] = 0.0  # the oracle recomputes these from host inputs
         self.tier_positions["fused"] += n_cov
+        self.fused_chunks += 1
         prep = None
         if packed is not None:
             prep = unpack_fields(packed.cpu().numpy(), n_pos, sz)

@@ -37,7 +37,8 @@ def run_caller(cfg: CallerConfig, device: torch.device, out_fileobj=None,
                stats=None, dbsnp=None, tracer=None):
     """Run the full pipeline with the engine on `device`. Returns
     (stats, contig_table). The tracer, when given, also receives the
-    engine's per-tier position counts as `tier_<name>` counters."""
+    engine's per-tier position counts as `tier_<name>` counters and the
+    number of chunks the fused tier carried as `fused_chunks`."""
     from bs_call_tpu_torch.ops.genotype_native import _n_threads
     from bs_call_tpu_torch.utils.trace import Tracer
 
@@ -146,6 +147,7 @@ def run_caller(cfg: CallerConfig, device: torch.device, out_fileobj=None,
         vector_emitter.finalize_stats(table)
     for name, n in engine.tier_positions.items():
         tracer.count(f"tier_{name}", n)
+    tracer.count("fused_chunks", engine.fused_chunks)
     tracer.report()
     return stats, table
 

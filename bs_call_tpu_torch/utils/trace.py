@@ -40,7 +40,7 @@ class Tracer:
             return
         f = fileobj or sys.stderr
         wall = time.perf_counter() - self._t0
-        print(f"--- bs_call_tpu timings (wall {wall:.2f}s) ---", file=f)
+        print(f"--- bs_call_tpu_torch timings (wall {wall:.2f}s) ---", file=f)
         for name in sorted(self.times, key=lambda k: -self.times[k]):
             t = self.times[name]
             print(f"  {name:<12} {t:8.2f}s  {100*t/max(wall,1e-9):5.1f}%",

@@ -19,22 +19,32 @@ and g++. Phases, each of which raises on failure (exit code 1):
    flag). Every field must be equal on the rows neither flags; the
    number of rows whose risk bit differs is printed, with kernel and
    plain times from CUDA events;
-6. end to end on a 600k-read WGBS fixture (4 contigs x 1.25 Mbp, 150k
+6. K12, the pileup and the genotype model per position tile, against its
+   plain version (`device_pileup_plain` then
+   `call_genotypes_pileup_plain`) on the card, in f64 and f32, at phase
+   4's batch and on a hot position (5,000 reads of mapq 59 over one
+   position, which takes `mapq2_sum` past 2^24): integers exact, f64
+   within K2's tolerances. K12, K1 and K2's pileup entry are timed on the
+   same batch in this run;
+7. end to end on a 600k-read WGBS fixture (4 contigs x 1.25 Mbp, 150k
    reads each, seed 0, dbSNP every 503 bp): `bs_call_tpu.cli --device
-   cpu` (the native host engine) in a subprocess, then
+   cpu` (the native host engine, the reference) in a subprocess, then
    `bs_call_tpu_torch.cli --device cuda` twice in this process, with the
-   emit tier on (the default: K1 -> K2 -> K3) and with
-   `BS_CALL_EMIT_TIER=0` (K1 -> K2, host emit prep). VCF and report bytes
-   of both must equal the host's. The launch counts, reset just before
-   each port run, must show that the tier-on run went through K1, K2 and
-   K3 (K3 once per K1 launch) and the tier-off run through no K3; the
-   tier-on run's risk-flagged share of the covered positions it carried
-   (`tier_emit_risk` / `tier_emit`) must stay at or below 2%. The three
-   walls are printed beside the card.
+   emit tier on (the default: K12 -> K3) and with `BS_CALL_EMIT_TIER=0`
+   (K12, host emit prep). VCF and report bytes of both must equal the
+   reference's. The launch counts, reset just before each port run, must
+   show that each run launched K12 once per chunk the fused tier
+   carried, and K1 and K2's pileup entry never; the tier-on run K3 once
+   per K12 launch, the tier-off run no K3. The tier-on run's risk-flagged
+   share of the covered positions it carried (`tier_emit_risk` /
+   `tier_emit`) must stay at or below 2%. The three walls are printed
+   beside the card.
 
-The line before the last is a JSON object with one entry per kernel of
-the main path; the last is `{"ok": true, "device": {...}}`. Imports
-nothing of JAX.
+The line before the last is a JSON object with one entry per kernel
+(`bound_ms` from this run's inputs: bytes over 3.35 TB/s, FP64
+operations over 34 TFLOP/s, the larger); the last is `{"ok": true,
+"device": {...}}`. Imports nothing of JAX and nothing of `bs_call_tpu`,
+which it runs only as the reference subprocess.
 """
 
 from __future__ import annotations
@@ -66,7 +76,9 @@ def card_line() -> str:
 
 
 def time_ms(fn, torch) -> float:
-    """Mean milliseconds per call over TIMED_ITERS calls, CUDA events."""
+    """Mean milliseconds per call over TIMED_ITERS eager calls, CUDA
+    events: the host's enqueue cost (allocation, checks, the ctypes call)
+    is in it, and bounds it when it exceeds the device's work."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -78,6 +90,64 @@ def time_ms(fn, torch) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / TIMED_ITERS
+
+
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory
+FP64_FLOP_S = 34e12    # H100 SXM FP64 outside the tensor cores
+# a libdevice f64 log or exp is counted as 20 FMA, 40 FLOP
+TRANSCENDENTAL_FLOP = 40
+
+
+def bound(nbytes, flops=0.0):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    FP64 operations over the FP64 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP64_FLOP_S
+    if t_ops > t_bytes:
+        return 1e3 * t_ops, "operations"
+    return 1e3 * t_bytes, "bytes"
+
+
+def model_flops(np, counts):
+    """FP64 operations of the genotype model and finish on these counts
+    [N,8]: ten FMA for each category with reads, get_Z twice (~30 FLOP
+    each), three logs for each methylation category with reads, nine exp,
+    one log1p and the ten posteriors."""
+    live = counts > 0
+    return float(
+        2 * 10 * live.sum() + len(counts) * (60 + 10 * TRANSCENDENTAL_FLOP + 30)
+        + 3 * TRANSCENDENTAL_FLOP * live[:, 4:].sum()
+    )
+
+
+# bytes of one position's pileup planes and model outputs (f64)
+PILEUP_BYTES = 64 + 32 + 4          # counts2 i32, qual_sum f32, mapq2 f32
+MODEL_OUT_BYTES = 80 + 4 + 8 + 8 + 8  # gt_prob, max_gt, margin, off, quals
+
+
+def device_ms(fn, torch, reps=20) -> float:
+    """Device milliseconds per call: `reps` calls captured in one CUDA
+    graph, the graph replayed 5 times between CUDA events, so the host's
+    enqueue cost is out of the measurement."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(5):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (5 * reps)
 
 
 def genotype_inputs(np, n, seed):
@@ -138,12 +208,24 @@ def check_k2(torch, np, dev):
             if entry == "pileup" and not torch.equal(got[4], want[4]):
                 raise AssertionError(f"K2 pileup {dtype}: quals differ")
             err = (gp - w_gp).abs().max().item()
-            ms = time_ms(lambda: kern(*args, tables), torch)
+            ms = device_ms(lambda: kern(*args, tables), torch)
+            eager_ms = time_ms(lambda: kern(*args, tables), torch)
             plain_ms = time_ms(lambda: plain(*args, tables), torch)
             name = f"genotype_{entry}_{'f64' if dtype == torch.float64 else 'f32'}"
-            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            isz = 8 if dtype == torch.float64 else 4
+            n_in = (PILEUP_BYTES if entry == "pileup" else 64 + 4) * N_POS
+            n_out = (10 * isz + 4 + 2 * isz
+                     + (8 if entry == "pileup" else 0)) * N_POS
+            flops = (model_flops(np, args[0].view(N_POS, -1, 8).sum(1)
+                                 .cpu().numpy())
+                     if dtype == torch.float64 else 0.0)
+            b_ms, b_by = bound(n_in + n_out, flops)
+            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "library_ms": None, "eager_ms": eager_ms}
             log(f"K2 {name}: N={N_POS} max|d gt_prob|={err:.3e} "
-                f"(tol {tol:g}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                f"(tol {tol:g}) kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), "
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return results
 
 
@@ -188,15 +270,22 @@ def check_k3(torch, np, dev):
     if ok.sum() < N_POS // 2:
         raise AssertionError(f"K3: only {ok.sum()} rows unflagged")
     n_diff = int((g["risk"] != w["risk"]).sum())
-    ms = time_ms(lambda: K3.emit_fields_cuda(*args), torch)
+    ms = device_ms(lambda: K3.emit_fields_cuda(*args), torch)
+    eager_ms = time_ms(lambda: K3.emit_fields_cuda(*args), torch)
     plain_ms = time_ms(lambda: E.pack_fields(E.emit_fields_plain(*args)),
                        torch)
+    # reads gt_prob, max_gt, margin, off_sum, counts2, mapq2_sum, ref;
+    # writes the packed row; its f64 work is far below its bytes
+    b_ms, b_by = bound((80 + 4 + 8 + 8 + 64 + 4 + 4 + E.ROW_BYTES) * N_POS)
     log(f"K3 emit_fields_f64: N={N_POS} every field equal on {ok.sum()} "
         f"rows neither flags (max|d fs|={err:.3e}, tol 1e-12 relative); "
         f"risk bits differ on {n_diff} rows "
         f"(kernel {int(g['risk'].sum())}, plain {int(w['risk'].sum())} "
-        f"flagged); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        f"flagged); kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "eager_ms": eager_ms}
 
 
 def read_batch(np, R, L, n_pos, seed):
@@ -228,23 +317,146 @@ def check_k1(torch, np, dev):
             raise AssertionError(f"K1 {name} differs from the plain version")
     if int(got[0].sum()) == 0:
         raise AssertionError("K1 counted no base")
-    ms = time_ms(lambda: PD.pileup_scatter(*args, N_POS, 20), torch)
+    ms = device_ms(lambda: PD.pileup_scatter(*args, N_POS, 20), torch)
+    eager_ms = time_ms(lambda: PD.pileup_scatter(*args, N_POS, 20), torch)
     plain_ms = time_ms(lambda: PD.device_pileup_plain(*args, N_POS, 20),
                        torch)
+    b_ms, b_by = bound(args[0].numel() + 16 * args[0].shape[0]
+                       + PILEUP_BYTES * N_POS)
     log(f"K1 pileup_scatter: R=4096 L=256 n_pos={N_POS} exact match, "
-        f"{int(got[0].sum())} bases; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+        f"{int(got[0].sum())} bases; kernel {ms:.4f} ms (eager "
+        f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "eager_ms": eager_ms}
+
+
+def hot_batch(np, n_pos, seed):
+    """5,000 reads of mapq 59, 150 bases each, over one position (2,000),
+    which takes its mapq2 sum past 2^24, plus a trimmed-out row and rows
+    that straddle tile edges and start before 0."""
+    rng = np.random.default_rng(seed)
+    R, L = 5000, 160
+    starts = np.sort(2000 - rng.integers(0, 150, R)).astype(np.int32)
+    starts[:40] = rng.integers(-150, 0, 40)
+    starts.sort()
+    q = rng.integers(20, 44, size=(R, L))
+    rd = ((q << 2) | rng.integers(0, 4, size=(R, L))).astype(np.uint8)
+    rd[:, 150:] = 0
+    rd[R // 2] = 63 << 2  # every byte masked: the row is trimmed away
+    ori = rng.integers(0, 2, R).astype(np.int32)
+    strand = rng.integers(0, 3, R).astype(np.int32)
+    mapq = np.full(R, 59, np.int32)
+    return rd, starts, ori, strand, mapq
+
+
+def check_k12(torch, np, dev):
+    """K12 against its plain version at K1's batch and on the hot
+    position, f64 and f32; K12, K1 and K2's pileup entry timed on the
+    same batch."""
+    from bs_call_tpu_torch.ops import genotype as G
+    from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
+    from bs_call_tpu_torch.ops.kernels import pileup_device as PD
+    from bs_call_tpu_torch.ops.kernels import pileup_genotype_cuda as K12
+    from bs_call_tpu_torch.ops.params import ModelParams, model_tables
+
+    rng = np.random.default_rng(4)
+    ref = torch.from_numpy(rng.integers(0, 5, N_POS).astype(np.int32)).to(dev)
+    result = None
+    for case, batch in (("batch", read_batch(np, 4096, 256, N_POS, 1)),
+                        ("hot", hot_batch(np, N_POS, 5))):
+        R, L = batch[0].shape
+        tiles = torch.from_numpy(
+            PD.tile_rows(batch[1], R, N_POS, L)).to(dev)
+        args = [torch.from_numpy(a).to(dev) for a in batch]
+        # f32 (off the main path) only at the shallow batch, where K2's
+        # f32 tolerances hold: at depth 5,000 an f32 log-likelihood of
+        # ~1e4 carries ~1e-3 of rounding
+        for dtype, tol, tie in ((torch.float64, 1e-12, 1e-9),
+                                (torch.float32, 2e-5, 1e-3))[
+                                    : 2 if case == "batch" else 1]:
+            tables = model_tables(ModelParams(), dtype, dev)
+            got = K12.pileup_genotype(*args, tiles, ref, N_POS, 20, tables)
+            c2, qs, m2 = PD.device_pileup_plain(*args, N_POS, 20)
+            want = (c2, qs, m2,
+                    *G.call_genotypes_pileup_plain(c2, qs, ref, tables))
+            torch.cuda.synchronize()
+            for name, a, b in zip(("counts2", "qual_sum", "mapq2_sum"),
+                                  got[:3], want[:3]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K12 {case} {dtype}: {name} differs")
+            if not torch.equal(got[7], want[7]):
+                raise AssertionError(f"K12 {case} {dtype}: quals differ")
+            gp, mx, mg, off = got[3:7]
+            w_gp, w_mx, w_mg, w_off = want[3:7]
+            clear = w_mg > tie
+            if not torch.equal(mx[clear], w_mx[clear]):
+                raise AssertionError(f"K12 {case} {dtype}: max_gt differs")
+            f64 = dtype == torch.float64
+            torch.testing.assert_close(gp, w_gp, rtol=tol, atol=tol)
+            torch.testing.assert_close(off, w_off, rtol=tol if f64 else 1e-4,
+                                       atol=1e-30)
+            torch.testing.assert_close(mg, w_mg, rtol=tol,
+                                       atol=tol if f64 else 2e-4)
+            err = (gp - w_gp).abs().max().item()
+            hot = int((got[2] >= 2.0**24).sum())
+            log(f"K12 {case} {'f64' if f64 else 'f32'}: R={R} L={L} "
+                f"n_pos={N_POS} integers exact, {int(got[0].sum())} bases, "
+                f"{hot} positions with mapq2_sum >= 2^24; max|d gt_prob|="
+                f"{err:.3e} (tol {tol:g})")
+            if case == "hot" and hot == 0:
+                raise AssertionError("K12 hot: mapq2_sum never passed 2^24")
+            if case != "batch" or not f64:
+                continue
+            def k12():
+                return K12.pileup_genotype(*args, tiles, ref, N_POS, 20,
+                                           tables)
+
+            def plain():
+                c2, qs, _ = PD.device_pileup_plain(*args, N_POS, 20)
+                return G.call_genotypes_pileup_plain(c2, qs, ref, tables)
+
+            def k1_k2():
+                c2, qs, _ = PD.pileup_scatter(*args, N_POS, 20)
+                return K2.genotype_pileup(c2, qs, ref, tables)
+
+            # in turns, on one card: K12, K1 + K2, K1 + K2, K12
+            ms_a, pair_a = device_ms(k12, torch), device_ms(k1_k2, torch)
+            pair_b, ms_b = device_ms(k1_k2, torch), device_ms(k12, torch)
+            ms, pair_ms = (ms_a + ms_b) / 2, (pair_a + pair_b) / 2
+            eager_ms, pair_eager = time_ms(k12, torch), time_ms(k1_k2, torch)
+            plain_ms = time_ms(plain, torch)
+            n_in = (args[0].numel() + 16 * R + 8 * tiles.shape[0]
+                    + 4 * N_POS)
+            n_out = (PILEUP_BYTES + MODEL_OUT_BYTES) * N_POS
+            b_ms, b_by = bound(n_in + n_out,
+                               model_flops(np, want[0].sum(1).cpu().numpy()))
+            log(f"K12 pileup_genotype_f64: kernel {ms:.4f} ms ({ms_a:.4f}, "
+                f"{ms_b:.4f}; eager {eager_ms:.4f} ms); K1 + K2 pileup "
+                f"entry on the same batch {pair_ms:.4f} ms ({pair_a:.4f}, "
+                f"{pair_b:.4f}; eager {pair_eager:.4f} ms); plain "
+                f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+            result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                      "eager_ms": eager_ms, "k1_k2_ms": pair_ms,
+                      "k1_k2_eager_ms": pair_eager}
+    return result
 
 
 def end_to_end(torch, card):
-    from bs_call_tpu.utils.synth import make_dbsnp_index, make_wgbs_fixture
-    from bs_call_tpu.utils.trace import Tracer
     from bs_call_tpu_torch import cli
+    from bs_call_tpu_torch.native import load as native_load
     from bs_call_tpu_torch.ops.kernels import emit_cuda as K3
     from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
     from bs_call_tpu_torch.ops.kernels import pileup_device as PD
+    from bs_call_tpu_torch.ops.kernels import pileup_genotype_cuda as K12
     from bs_call_tpu_torch.parity import strip_date
+    from bs_call_tpu_torch.utils.synth import (
+        make_dbsnp_index,
+        make_wgbs_fixture,
+    )
+    from bs_call_tpu_torch.utils.trace import Tracer
 
     tmp = tempfile.mkdtemp(prefix="bsct_smoke_")
     try:
@@ -259,10 +471,9 @@ def end_to_end(torch, card):
         )
         log(f"fixture: {n_recs} records, {n_ctg} x {ctg_len} bp, "
             f"{time.perf_counter() - t0:.1f} s")
-        # the native host library (ingest, pileup, emit) both runs use
-        # builds once here, outside either run's time
-        from bs_call_tpu.native import load as native_load
-
+        # the port's native host library (ingest, pileup, emit) builds
+        # once here, outside the port runs' time (the reference subprocess
+        # builds its own copy inside its time)
         t0 = time.perf_counter()
         if native_load() is None:
             raise AssertionError("the native host library did not build")
@@ -296,7 +507,8 @@ def end_to_end(torch, card):
             so it is set around cli.main."""
             tracer = Tracer()
             for fn in (PD.pileup_scatter, K2.genotype_pileup,
-                       K2.genotype_column, K3.emit_fields_cuda):
+                       K2.genotype_column, K3.emit_fields_cuda,
+                       K12.pileup_genotype):
                 fn.launches = 0
             before = os.environ.get("BS_CALL_EMIT_TIER")
             os.environ["BS_CALL_EMIT_TIER"] = "1" if emit_tier else "0"
@@ -317,6 +529,7 @@ def end_to_end(torch, card):
             if rc != 0:
                 raise AssertionError(f"port CLI ({tag}) exited {rc}")
             launches = {
+                "pileup_genotype_f64": K12.pileup_genotype.launches,
                 "pileup_scatter": PD.pileup_scatter.launches,
                 "genotype_pileup_f64": K2.genotype_pileup.launches,
                 "genotype_column": K2.genotype_column.launches,
@@ -339,18 +552,24 @@ def end_to_end(torch, card):
                 raise AssertionError(
                     f"{tag}: report differs from bs_call_tpu --device cpu"
                 )
-            if not (launches["pileup_scatter"] > 0
-                    and launches["genotype_pileup_f64"] > 0):
-                raise AssertionError(f"{tag} skipped a kernel: {launches}")
-            if tiers.get("fused", 0) == 0:
+            chunks = tracer.counts.get("fused_chunks", 0)
+            if tiers.get("fused", 0) == 0 or chunks == 0:
                 raise AssertionError(f"{tag}: fused tier carried nothing")
+            if launches["pileup_genotype_f64"] != chunks:
+                raise AssertionError(
+                    f"{tag}: K12 not once per fused chunk ({chunks}): "
+                    f"{launches}")
+            if launches["pileup_scatter"] or launches["genotype_pileup_f64"]:
+                raise AssertionError(
+                    f"{tag}: K1 or K2's pileup entry on the main path: "
+                    f"{launches}")
             return wall, launches, tiers
 
         total = n_ctg * n_reads
         on_s, launches, tiers = port_run("port", emit_tier=True)
         if not (0 < launches["emit_fields_f64"]
-                == launches["pileup_scatter"]):
-            raise AssertionError(f"K3 not once per K1 launch: {launches}")
+                == launches["pileup_genotype_f64"]):
+            raise AssertionError(f"K3 not once per K12 launch: {launches}")
         risky = tiers.get("emit_risk", 0) / max(tiers.get("emit", 0), 1)
         if tiers.get("emit", 0) == 0 or risky > 0.02:
             raise AssertionError(f"emit tier: {tiers}")
@@ -406,20 +625,28 @@ def main() -> int:
     k2 = check_k2(torch, np, dev)
     k1 = check_k1(torch, np, dev)
     k3 = check_k3(torch, np, dev)
+    k12 = check_k12(torch, np, dev)
     launches = end_to_end(torch, card)
-    if "jax" in sys.modules:
-        raise AssertionError("the port's run imported jax")
+    for mod in ("jax", "bs_call_tpu"):
+        if mod in sys.modules:
+            raise AssertionError(f"the port's run imported {mod}")
 
     src = "bs_call_tpu_torch/csrc/"
     kernels = [
+        {"name": "pileup_genotype_f64", "route": "cuda",
+         "source": src + "pileup_genotype.cu",
+         "replaces": "bs_call_tpu/ops/kernels/genotype_pallas.py:48",
+         "launches": launches["pileup_genotype_f64"],
+         **{k: v for k, v in k12.items() if not k.startswith("k1_k2")}},
         {"name": "pileup_scatter", "route": "cuda",
          "source": src + "pileup.cu",
          "replaces": "bs_call_tpu/ops/kernels/pileup_device.py:37",
-         "launches": launches["pileup_scatter"], **k1},
+         "launches": launches["pileup_scatter"], "on_main_path": False,
+         **k1},
         {"name": "genotype_pileup_f64", "route": "cuda",
          "source": src + "genotype.cu",
          "replaces": "bs_call_tpu/ops/kernels/genotype_pallas.py:48",
-         "launches": launches["genotype_pileup_f64"],
+         "launches": launches["genotype_pileup_f64"], "on_main_path": False,
          **k2["genotype_pileup_f64"]},
         {"name": "emit_fields_f64", "route": "cuda",
          "source": src + "emit.cu",
@@ -427,9 +654,11 @@ def main() -> int:
          "launches": launches["emit_fields_f64"], **k3},
     ]
     print(f"[{card}] " + "; ".join(
-        f"{k} kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms"
-        for k, v in {**k2, "pileup_scatter": k1,
-                     "emit_fields_f64": k3}.items()), flush=True)
+        f"{k} kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms "
+        f"bound {v['bound_ms']:.4f} ms"
+        for k, v in {**k2, "pileup_scatter": k1, "emit_fields_f64": k3,
+                     "pileup_genotype_f64": k12}.items())
+        + f"; K1 + K2 pileup f64 {k12['k1_k2_ms']:.4f} ms", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
