@@ -134,7 +134,6 @@ def args_to_config(args) -> CallerConfig:
         min_qual=args.bq_threshold,
         max_template_len=args.max_template_length,
         ref_bias=args.reference_bias,
-        device=args.device,
         exact=not args.no_exact,
         verbose=args.verbose,
     )

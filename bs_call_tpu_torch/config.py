@@ -37,8 +37,7 @@ class CallerConfig:
     over_conv: float = C.DEFAULT_OVER_CONVERSION
     ref_bias: float = C.DEFAULT_REF_BIAS
 
-    # engine knobs
-    device: str = "cuda"           # "cuda" | "cpu" (bs_call_tpu_torch.device)
+    # engine knobs (the device is run_caller's argument, not a field)
     threads: int = 4               # calc share of -t (see input/output below)
     # -t calc,input,output explicit split (parse_args.c:144-146); when
     # None the runner derives pools from `threads` (the 4:3:3 auto-split

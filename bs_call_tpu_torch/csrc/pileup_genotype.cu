@@ -13,7 +13,7 @@
 // quals_u8 [n_pos,8].
 //
 // Input (pileup_device.py layout): rd [R,L] u8 with base = rd & 3 and
-// q = rd >> 2, L a multiple of 16 and at most 2048; starts, ori, strand,
+// q = rd >> 2, L a multiple of 16 in [64, 2048]; starts, ori, strand,
 // mapq [R] i32, the live rows sorted by start (pad_read_batch); tiles
 // [n_tiles,2] i32, for each tile the first row and one past the last row
 // whose span [start, start + L) meets it (pileup_device.tile_rows). Per
@@ -23,8 +23,10 @@
 //
 // Design. One CTA of 256 threads per tile of kTile = 128 positions.
 // * Pileup. The tile's accumulators live in shared memory: counts2
-//   [128,2,8] i32, qual_sum [128,8] i32, mapq2 [128] u64 (104 B a
-//   position). The tile's rows are staged into shared memory with
+//   [2*8][128] i32, qual_sum [8][128] i32, mapq2 [128] as two u32 words
+//   (104 B a position), position-minor with a padded stride so that the
+//   lanes' consecutive positions hit distinct banks. The tile's rows, and
+//   their start, ori, strand and mapq, are staged into shared memory with
 //   cp.async in 8 KB batches, double-buffered: batch b+1 is in flight
 //   while the warps scatter batch b. One warp takes one staged row: it
 //   finds the row's first and last live byte over the whole row (warp
@@ -74,20 +76,23 @@ namespace {
 using namespace bsct;
 
 constexpr int kTile = 128;         // positions per CTA
+constexpr int kStride = kTile + 1;  // shared planes: [slot][position], padded
 constexpr int kThreads = 256;      // 8 warps; 2 threads a position
 constexpr int kWarps = kThreads / 32;
 constexpr int kStageBytes = 8192;  // one staged batch of read rows
-constexpr int kMaxL = 2048;
+constexpr int kMinL = 64, kMaxL = 2048;
+constexpr int kMaxRows = kStageBytes / kMinL;  // rows in one batch
 constexpr int kFltQual = 63;       // FLT_QUAL: trimmed / masked base
 
 static_assert(kThreads == 2 * kTile, "two threads per position");
 
-// BASE_TAB_ST (bs_call_tpu_torch/constants.py): (bs strand, base) -> cat
-__constant__ int kBaseTab[3][4] = {
-    {0, 1, 2, 3},  // non-converted
-    {0, 5, 2, 7},  // C2T
-    {4, 1, 6, 3},  // G2A
-};
+// BASE_TAB_ST (bs_call_tpu_torch/constants.py) as arithmetic: a C2T read
+// (strand 1) moves T and C of an odd base code to categories 5 and 7, a
+// G2A read (strand 2) A and G of an even one to 4 and 6:
+// {0,1,2,3}, {0,5,2,7}, {4,1,6,3}
+__device__ __forceinline__ int category(int st, int base) {
+  return base + 4 * (st != 0 && ((base ^ (st == 2)) & 1));
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -104,22 +109,39 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// rows [r, r + n) of rd are n * L contiguous bytes, a multiple of 16
-__device__ __forceinline__ void stage_rows(uint8_t* buf, const uint8_t* rd,
-                                           int r, int n, int L) {
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// rows [r, r + n) of rd (n * L contiguous bytes, a multiple of 16) into
+// buf, and their start, ori, strand and mapq into meta[n][4]
+__device__ __forceinline__ void stage_rows(
+    uint8_t* buf, int (*meta)[4], const uint8_t* rd, const int* starts,
+    const int* ori, const int* strand, const int* mapq, int r, int n,
+    int L) {
   const uint8_t* src = rd + (long long)r * L;
   const int bytes = n * L;
   for (int o = threadIdx.x * 16; o < bytes; o += kThreads * 16) {
     cp_async16(buf + o, src + o);
   }
+  for (int j = threadIdx.x; j < 4 * n; j += kThreads) {
+    const int c = j & 3;
+    const int* col = c == 0 ? starts : c == 1 ? ori : c == 2 ? strand : mapq;
+    cp_async4(&meta[j >> 2][c], col + r + (j >> 2));
+  }
 }
 
 // one warp: trim one staged row and add its bytes in [t0, t_end) to the
-// tile's shared accumulators
+// tile's shared accumulators. The planes are position-minor with a padded
+// stride, so the lanes' consecutive positions fall in distinct banks; the
+// u64 mapq^2 sum is two u32 words, the low one's carries added to the
+// high one, which keeps it exact.
 __device__ __forceinline__ void scatter_row(
-    const uint8_t* row, int L, int start, int o, int st,
-    unsigned long long mq2, int t0, int t_end, int min_qual, int* s_counts,
-    int* s_qsum, unsigned long long* s_mq2) {
+    const uint8_t* row, int L, const int meta[4], int t0, int t_end,
+    int min_qual, int* s_counts, int* s_qsum, unsigned* s_mq2_lo,
+    unsigned* s_mq2_hi) {
   const int lane = threadIdx.x & 31;
   int lo = INT_MAX, hi = -1;
   for (int j = lane * 4; j < L; j += 128) {
@@ -136,6 +158,12 @@ __device__ __forceinline__ void scatter_row(
   lo = __reduce_min_sync(0xffffffffu, lo);
   hi = __reduce_max_sync(0xffffffffu, hi);
   if (hi < 0) return;  // no live byte in this row
+  const int start = meta[0];
+  const int o8 = meta[1] != 0 ? 8 : 0;
+  const int st = min(max(meta[2], 0), 2);
+  const unsigned long long mq2 =
+      (unsigned long long)((long long)meta[3] * meta[3]);
+  const unsigned mq2_lo = (unsigned)mq2, mq2_hi = (unsigned)(mq2 >> 32);
   const int j0 = max(lo, t0 - start);
   const int j1 = min(hi, t_end - 1 - start);
   for (int j = j0 + lane; j <= j1; j += 32) {
@@ -143,10 +171,12 @@ __device__ __forceinline__ void scatter_row(
     const int q = b >> 2;
     if (q < min_qual || q == kFltQual) continue;
     const int p = start + j - t0;
-    const int cat = kBaseTab[st][b & 3];
-    atomicAdd(&s_counts[p * 16 + o * 8 + cat], 1);
-    atomicAdd(&s_qsum[p * 8 + cat], q);
-    atomicAdd(&s_mq2[p], mq2);
+    const int cat = category(st, b & 3);
+    atomicAdd(&s_counts[(o8 + cat) * kStride + p], 1);
+    atomicAdd(&s_qsum[cat * kStride + p], q);
+    const unsigned old = atomicAdd(&s_mq2_lo[p], mq2_lo);
+    const unsigned carry = old + mq2_lo < old;
+    if (mq2_hi + carry) atomicAdd(&s_mq2_hi[p], mq2_hi + carry);
   }
 }
 
@@ -166,10 +196,11 @@ __global__ void __launch_bounds__(kThreads, 2) pileup_genotype_kernel(
     float* __restrict__ mapq2_sum, T* __restrict__ gt_prob,
     int* __restrict__ max_gt, T* __restrict__ margin,
     T* __restrict__ off_sum, uint8_t* __restrict__ quals_u8) {
-  __shared__ __align__(16) int s_counts[kTile * 16];
-  __shared__ int s_qsum[kTile * 8];
-  __shared__ unsigned long long s_mq2[kTile];
+  __shared__ int s_counts[16 * kStride];  // [ori*8 + cat][position]
+  __shared__ int s_qsum[8 * kStride];     // [cat][position]
+  __shared__ unsigned s_mq2_lo[kTile], s_mq2_hi[kTile];
   __shared__ __align__(16) uint8_t s_rows[2][kStageBytes];
+  __shared__ int s_meta[2][kMaxRows][4];
   __shared__ T s_tab[kNQ * 4];
   __shared__ T s_prior[5 * kNG];
 
@@ -177,9 +208,9 @@ __global__ void __launch_bounds__(kThreads, 2) pileup_genotype_kernel(
   const int warp = tid >> 5;
   const int t0 = blockIdx.x * kTile;
   const int np = min(kTile, n_pos - t0);  // positions of this tile
-  for (int j = tid; j < kTile * 16; j += kThreads) s_counts[j] = 0;
-  for (int j = tid; j < kTile * 8; j += kThreads) s_qsum[j] = 0;
-  for (int j = tid; j < kTile; j += kThreads) s_mq2[j] = 0ull;
+  for (int j = tid; j < 16 * kStride; j += kThreads) s_counts[j] = 0;
+  for (int j = tid; j < 8 * kStride; j += kThreads) s_qsum[j] = 0;
+  for (int j = tid; j < kTile; j += kThreads) s_mq2_lo[j] = s_mq2_hi[j] = 0;
   load_tables(tab, prior, s_tab, s_prior);
 
   // ---- pileup: staged batches of the rows that meet the tile ----
@@ -187,14 +218,17 @@ __global__ void __launch_bounds__(kThreads, 2) pileup_genotype_kernel(
   const int r1 = tiles[2 * blockIdx.x + 1];
   const int per = kStageBytes / L;  // rows per batch
   const int n_batch = r1 > r0 ? (r1 - r0 + per - 1) / per : 0;
-  if (n_batch > 0) stage_rows(s_rows[0], rd, r0, min(per, r1 - r0), L);
+  if (n_batch > 0) {
+    stage_rows(s_rows[0], s_meta[0], rd, starts, ori, strand, mapq, r0,
+               min(per, r1 - r0), L);
+  }
   cp_async_commit();
   __syncthreads();  // the zeroed accumulators
   for (int b = 0; b < n_batch; ++b) {
     const int rb = r0 + b * per;
     if (b + 1 < n_batch) {
-      stage_rows(s_rows[(b + 1) & 1], rd, rb + per,
-                 min(per, r1 - rb - per), L);
+      stage_rows(s_rows[(b + 1) & 1], s_meta[(b + 1) & 1], rd, starts, ori,
+                 strand, mapq, rb + per, min(per, r1 - rb - per), L);
     }
     cp_async_commit();
     cp_async_wait<1>();  // batch b has landed (this thread's copies)
@@ -202,28 +236,24 @@ __global__ void __launch_bounds__(kThreads, 2) pileup_genotype_kernel(
     const uint8_t* buf = s_rows[b & 1];
     const int nr = min(per, r1 - rb);
     for (int k = warp; k < nr; k += kWarps) {
-      const int r = rb + k;
-      const int mq = mapq[r];
-      scatter_row(buf + k * L, L, starts[r], ori[r] != 0,
-                  min(max(strand[r], 0), 2),
-                  (unsigned long long)((long long)mq * mq), t0, t0 + np,
-                  min_qual, s_counts, s_qsum, s_mq2);
+      scatter_row(buf + k * L, L, s_meta[b & 1][k], t0, t0 + np, min_qual,
+                  s_counts, s_qsum, s_mq2_lo, s_mq2_hi);
     }
     __syncthreads();  // buffer b & 1 is refilled at iteration b + 1
   }
   cp_async_wait<0>();
 
   // ---- the tile's pileup planes, written once ----
-  {
-    const int4* src = reinterpret_cast<const int4*>(s_counts);
-    int4* dst = reinterpret_cast<int4*>(counts2 + (long long)t0 * 16);
-    for (int j = tid; j < np * 4; j += kThreads) dst[j] = src[j];
-    for (int j = tid; j < np * 8; j += kThreads) {
-      qual_sum[(long long)t0 * 8 + j] = __int2float_rn(s_qsum[j]);
-    }
-    for (int j = tid; j < np; j += kThreads) {
-      mapq2_sum[t0 + j] = __ull2float_rn(s_mq2[j]);
-    }
+  for (int j = tid; j < np * 16; j += kThreads) {
+    counts2[(long long)t0 * 16 + j] = s_counts[(j & 15) * kStride + (j >> 4)];
+  }
+  for (int j = tid; j < np * 8; j += kThreads) {
+    qual_sum[(long long)t0 * 8 + j] =
+        __int2float_rn(s_qsum[(j & 7) * kStride + (j >> 3)]);
+  }
+  for (int j = tid; j < np; j += kThreads) {
+    mapq2_sum[t0 + j] = __ull2float_rn(
+        (unsigned long long)s_mq2_hi[j] << 32 | s_mq2_lo[j]);
   }
 
   // ---- the model, two threads a position ----
@@ -238,8 +268,8 @@ __global__ void __launch_bounds__(kThreads, 2) pileup_genotype_kernel(
   unsigned long long qb = 0;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    const int cnt = s_counts[p * 16 + c] + s_counts[p * 16 + 8 + c];
-    const int qq = round_qual(__int2float_rn(s_qsum[p * 8 + c]), cnt);
+    const int cnt = s_counts[c * kStride + p] + s_counts[(8 + c) * kStride + p];
+    const int qq = round_qual(__int2float_rn(s_qsum[c * kStride + p]), cnt);
     qb |= (unsigned long long)(uint8_t)qq << (8 * c);
     nc[c] = T(cnt);
     q[c] = clamp_int(qq, 0, kNQ - 1);
@@ -304,7 +334,7 @@ int launch(const uint8_t* rd, const int* starts, const int* ori,
            const T* prior, double l, double t, int* counts2, float* qual_sum,
            float* mapq2_sum, T* gt_prob, int* max_gt, T* margin, T* off_sum,
            uint8_t* quals_u8, void* stream) {
-  if (R < 0 || L < 16 || L > kMaxL || L % 16 || n_pos <= 0) {
+  if (R < 0 || L < kMinL || L > kMaxL || L % 16 || n_pos <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const unsigned n_tiles = (unsigned)((n_pos + kTile - 1) / kTile);

@@ -67,9 +67,9 @@ def _kernels():
 
 def emit_fields_cuda(gt_prob, max_gt, margin, off, counts2, mapq2_sum, ref,
                      tables: EmitTables, quirk: bool = True):
-    """K3: K2's outputs (gt_prob [N,10] f64, max_gt [N] i32, margin [N]
-    f64, off_sum [N] f64) plus K1's counts2 [N,2,8] i32 and mapq2_sum [N]
-    f32 and ref [N] i32 -> the packed fields, uint8 [N * ROW_BYTES].
+    """K3: the model's outputs (gt_prob [N,10] f64, max_gt [N] i32, margin
+    [N] f64, off_sum [N] f64) plus the pileup's counts2 [N,2,8] i32 and
+    mapq2_sum [N] f32 (K12's on the fused tier) and ref [N] i32 -> the packed fields, uint8 [N * ROW_BYTES].
     CUDA tensors only; counts its launches in `launches`."""
     dev = gt_prob.device
     n = gt_prob.shape[0] if gt_prob.dim() else 0

@@ -3,8 +3,8 @@ the plain PyTorch version of K3 (`csrc/emit.cu`), and the packed layout
 both return.
 
 Counterpart of `bs_call_tpu/ops/kernels/emit_device.py` (`emit_fields_dd`
-:256, `_fisher_dd` :90, `_cg_codes` :495). From K2's outputs and K1's
-accumulators it computes what the host emit prep (`bsc_emit.cpp`, with
+:256, `_fisher_dd` :90, `_cg_codes` :495). From the model's outputs and
+the pileup's accumulators (K12's on the fused tier) it computes what the host emit prep (`bsc_emit.cpp`, with
 the Fisher test of `bsc_stats.cpp`) computes per row: GQ phred, QD, FS,
 the q20/qd2/fs60/mq40 filter bits, mac1, the GL values, the CG-status
 code, het, plus MQ and the genotype codes. `call_block_soa` and
@@ -20,7 +20,7 @@ not equal to it) and FMA contraction on the host. A row is flagged
 exactly where those can reach a quantization:
 
 * MQ: exact below 2^24 (f32 division and f64 sqrt are correctly
-  rounded); K1's exact mapq2 sum reaches the host's ordered f32 sum only
+  rounded); the device's exact mapq2 sum reaches the host's ordered f32 sum only
   below 2^24, so a covered row at or above 2^24 is flagged;
 * GQ: the phred value within an error band of an integer, the band
   widening as 1 - z1 shrinks (an ulp of z1 near 1 is a large part of
@@ -180,8 +180,8 @@ def _gl_cast(v):
 def emit_fields_plain(gt_prob, max_gt, margin, off, counts2, mapq2_sum, ref,
                       tables: EmitTables, quirk: bool = True):
     """Plain version of K3. gt_prob [n,10] f64, max_gt [n], margin [n]
-    f64, off [n] f64 (K2's outputs); counts2 [n,2,8], mapq2_sum [n] f32
-    (K1's); ref [n] (0..4, clipped). quirk: the reference's counts[0][6]
+    f64, off [n] f64 (the model's outputs); counts2 [n,2,8], mapq2_sum
+    [n] f32 (the pileup's); ref [n] (0..4, clipped). quirk: the reference's counts[0][6]
     in the GT genotype's Fisher table (call_genotypes.c:98). Returns a
     dict of [n] tensors (gl_vals [n,5]) named as LAYOUT."""
     n = gt_prob.shape[0]

@@ -54,7 +54,7 @@ def _kernels():
 
 def pileup_genotype(rd, starts, ori, strand, mapq, tiles, ref, n_pos: int,
                     min_qual: int, tables: ModelTables):
-    """rd [R, L] u8 (L a multiple of 16, at most 2048), starts/ori/
+    """rd [R, L] u8 (L a multiple of 16 in [64, 2048]), starts/ori/
     strand/mapq [R] i32 with the live rows sorted by start, tiles [ceil(n_pos/TILE), 2] i32
     (`pileup_device.tile_rows`), ref [n_pos] i32 -> (counts2 [n_pos,2,8]
     i32, qual_sum [n_pos,8] f32, mapq2_sum [n_pos] f32, gt_prob
@@ -77,9 +77,9 @@ def pileup_genotype(rd, starts, ori, strand, mapq, tiles, ref, n_pos: int,
     require(ref, "ref", torch.int32, (n_pos,), dev)
     require(tables.qual, "tables.qual", tables.dtype, (44, 4), dev)
     require(tables.prior, "tables.prior", tables.dtype, (5, 10), dev)
-    if not 16 <= L <= 2048 or L % 16 or rd.data_ptr() % 16:
+    if not 64 <= L <= 2048 or L % 16 or rd.data_ptr() % 16:
         raise ValueError(
-            f"rd: rows of {L} bytes; K12 takes 16..2048, a multiple of 16, "
+            f"rd: rows of {L} bytes; K12 takes 64..2048, a multiple of 16, "
             "16-byte aligned"
         )
     i32, dt = torch.int32, tables.dtype

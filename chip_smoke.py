@@ -458,6 +458,17 @@ def end_to_end(torch, card):
     )
     from bs_call_tpu_torch.utils.trace import Tracer
 
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in [env.get("PYTHONPATH")] if p]
+    )
+    # the reference's own native library builds in a process of its own,
+    # beside the fixture and the port's build, outside the reference's
+    # timed run
+    ref_build = subprocess.Popen(
+        [sys.executable, "-c", "import sys; from bs_call_tpu.native import "
+         "load; sys.exit(load() is None)"], cwd=HERE, env=env,
+    )
     tmp = tempfile.mkdtemp(prefix="bsct_smoke_")
     try:
         t0 = time.perf_counter()
@@ -472,22 +483,20 @@ def end_to_end(torch, card):
         log(f"fixture: {n_recs} records, {n_ctg} x {ctg_len} bp, "
             f"{time.perf_counter() - t0:.1f} s")
         # the port's native host library (ingest, pileup, emit) builds
-        # once here, outside the port runs' time (the reference subprocess
-        # builds its own copy inside its time)
+        # once here, outside the port runs' time
         t0 = time.perf_counter()
         if native_load() is None:
             raise AssertionError("the native host library did not build")
-        log(f"native host library built/loaded in "
+        if ref_build.wait() != 0:
+            raise AssertionError("the reference's native library did not "
+                                 "build")
+        log(f"native host libraries (port, reference) built/loaded in "
             f"{time.perf_counter() - t0:.1f} s")
         common = [bam, "-r", ref, "-D", dbsnp, "--benchmark-mode"]
         out = {k: os.path.join(tmp, k) for k in (
             "host.vcf", "host.json", "port.vcf", "port.json",
             "port_off.vcf", "port_off.json")}
 
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(
-            [HERE] + [p for p in [env.get("PYTHONPATH")] if p]
-        )
         t0 = time.perf_counter()
         subprocess.run(
             [sys.executable, "-m", "bs_call_tpu.cli", *common,
@@ -589,6 +598,9 @@ def end_to_end(torch, card):
             f"({total / host_s:.0f} reads/s)")
         return launches
     finally:
+        if ref_build.poll() is None:
+            ref_build.kill()
+            ref_build.wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
 

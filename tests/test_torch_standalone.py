@@ -208,3 +208,42 @@ def test_copied_pure_functions_equal_the_jax_package(case, jax_mod,
         assert a.dtype == b.dtype and a.shape == b.shape
         assert a.tobytes() == b.tobytes()
 
+
+
+def test_native_library_is_keyed_by_sources_flags_and_cpu(tmp_path,
+                                                          monkeypatch):
+    """The port's host library lives in bs_call_tpu_torch/build/<hash>/,
+    the hash over its own sources, the g++ command and the host CPU: a
+    library built from other sources, with other flags or on another CPU
+    has another path and is never loaded."""
+    import shutil
+
+    from bs_call_tpu_torch import native
+
+    lib = native.load()
+    assert lib is not None
+    path = native.lib_path()
+    assert lib._name == path
+    build, key, name = path.rsplit(os.sep, 2)
+    assert build == os.path.join(str(REPO), "bs_call_tpu_torch", "build")
+    assert name == "libbsc_ingest.so" and len(key) == 16
+    assert all(os.path.dirname(p) == native._DIR for p in native._SRCS)
+
+    monkeypatch.setattr(native, "_host_cpu", lambda: "another cpu")
+    assert native.lib_path() != path
+    monkeypatch.undo()
+    cmd = native._compile_cmd
+    monkeypatch.setattr(native, "_compile_cmd",
+                        lambda out: [*cmd(out), "-DOTHER"])
+    assert native.lib_path() != path
+    monkeypatch.undo()
+    srcs = []
+    for p in native._SRCS:
+        shutil.copy(p, tmp_path)
+        srcs.append(str(tmp_path / os.path.basename(p)))
+    with open(srcs[0], "a") as f:
+        f.write("\n// another source\n")
+    monkeypatch.setattr(native, "_SRCS", srcs)
+    assert native.lib_path() != path
+    monkeypatch.undo()
+    assert native.lib_path() == path
