@@ -1,4 +1,4 @@
-"""CSI (coordinate-sorted index) v1 reader + builder.
+"""CSI (coordinate-sorted index) v1 reader.
 
 The reference loads whatever index htslib finds — `.bai` or `.csi`
 (process.c:125 sam_index_load) — so region queries must work with both.
@@ -16,21 +16,6 @@ import struct
 from typing import List
 
 from bs_call_tpu_torch.io.bgzf import open_reader
-
-
-def reg2bin(beg: int, end: int, min_shift: int = 14,
-            depth: int = 5) -> int:
-    """Smallest bin containing [beg, end) in the generalized scheme."""
-    end -= 1
-    level, s = depth, min_shift
-    t = ((1 << (depth * 3)) - 1) // 7
-    while level > 0:
-        if beg >> s == end >> s:
-            return t + (beg >> s)
-        level -= 1
-        s += 3
-        t -= 1 << (level * 3)
-    return 0
 
 
 def reg2bins(beg: int, end: int, min_shift: int = 14,
@@ -116,37 +101,3 @@ class CsiIndex:
                 merged.append((cb, ce))
         return merged
 
-
-def write_csi(bam_path: str, out_path: str = None, min_shift: int = 14,
-              depth: int = 5):
-    """Build a .csi for a coordinate-sorted BAM (`samtools index -c`
-    analogue). loffset is written as the earliest chunk start recorded
-    for the bin — a valid (conservative) pruning floor."""
-    from bs_call_tpu_torch.io.bai import _walk_records
-    from bs_call_tpu_torch.io.bgzf import BgzfWriter
-
-    out_path = out_path or bam_path + ".csi"
-    n_ref, refs, _ = _walk_records(
-        bam_path, lambda b, e: reg2bin(b, e, min_shift, depth)
-    )
-    out = bytearray(b"CSI\x01")
-    out += struct.pack("<iii", min_shift, depth, 0)
-    out += struct.pack("<i", n_ref)
-    for tid in range(n_ref):
-        bins = refs[tid]
-        out += struct.pack("<i", len(bins))
-        for bin_ in sorted(bins):
-            chunks = []
-            for cb, ce in sorted(bins[bin_]):
-                if chunks and cb <= chunks[-1][1]:
-                    chunks[-1] = (chunks[-1][0], max(chunks[-1][1], ce))
-                else:
-                    chunks.append((cb, ce))
-            out += struct.pack("<IQi", bin_, chunks[0][0], len(chunks))
-            for cb, ce in chunks:
-                out += struct.pack("<QQ", cb, ce)
-    with open(out_path, "wb") as f:
-        w = BgzfWriter(f)
-        w.write(bytes(out))
-        w.close()
-    return out_path

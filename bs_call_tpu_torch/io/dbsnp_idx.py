@@ -1,5 +1,7 @@
-"""dbSNP index builder — offline tool converting dbSNP distributions
-(BED / VCF / NCBI refsnp JSON) into bs_call's compressed binary index.
+"""dbSNP index builder: bs_call's compressed binary index from SNPs added
+one by one (`add_snp`), as `utils/synth.py` builds its fixtures' indexes.
+The JAX package's `bs_call_tpu.io.dbsnp_idx` also parses dbSNP
+distributions (BED / VCF / NCBI refsnp JSON) and is the offline tool.
 
 Format contract (writer side): dbSNP_output.c:139-299, dbSNP_bins.c:73-116,
 dbSNP_input.c:110-160, dbSNP_json.c. Files produced here load with both
@@ -17,12 +19,10 @@ Layout summary:
 
 from __future__ import annotations
 
-import json
 import struct
-import sys
 import zlib
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, TextIO, Tuple
+from typing import Dict, List, Optional, Tuple
 
 MAGIC = 0xD7278434
 ITEMS_PER_BLOCK = 2048  # bins per compressed block (dbSNP_idx.h:26)
@@ -69,7 +69,6 @@ class DbSnpIndexBuilder:
         self.contigs: Dict[str, ContigBins] = {}
         self.n_snps = 0
         self.max_buf_size = 0
-        self.prebuilt = None  # name -> pre-compressed blocks (parallel build)
 
     # ---- input ----
 
@@ -110,143 +109,6 @@ class DbSnpIndexBuilder:
             b.fq_mask |= 1 << len(b.entries)
         b.entries.append((off, pref_ix, digits))
         self.n_snps += 1
-
-    def read_stream(self, fp: TextIO, input_type: str = "auto"):
-        for line in fp:
-            line = line.rstrip("\n")
-            if not line:
-                continue
-            if input_type == "auto":
-                if line[0] == "{":
-                    input_type = "json"
-                elif line.startswith("##fileformat=VCF"):
-                    input_type = "vcf"
-                else:
-                    input_type = "bed"
-            if input_type == "bed":
-                self._parse_bed(line)
-            elif input_type == "vcf":
-                self._parse_vcf(line)
-            else:
-                self._parse_json(line)
-
-    def _parse_bed(self, line: str):
-        if line.startswith("track ") and self.header is None:
-            self.header = line
-            return
-        f = line.split("\t")
-        if len(f) > 4:
-            try:
-                x = int(f[1])
-                y = int(f[2])
-            except ValueError:
-                return
-            if y > x and y - x == 1:
-                self.add_snp(f[0], y, f[3])
-
-    def _parse_vcf(self, line: str):
-        if line.startswith("#"):
-            return
-        f = line.split("\t")
-        if len(f) > 4 and len(f[3]) == 1 and len(f[4]) == 1:
-            try:
-                pos = int(f[1])
-            except ValueError:
-                return
-            self.add_snp(f[0], pos, f[2])
-
-    def _parse_json(self, line: str):
-        """NCBI refsnp JSON line (dbSNP_json.c semantics)."""
-        try:
-            obj = json.loads(line)
-        except json.JSONDecodeError:
-            return
-        name = obj.get("refsnp_id")
-        psd = obj.get("primary_snapshot_data") or {}
-        pos = cname = None
-        ins_seq = del_seq = None
-        for pl in psd.get("placements_with_allele", []):
-            if not pl.get("is_ptlp"):
-                continue
-            for a in pl.get("alleles", []):
-                spdi = (a.get("allele") or {}).get("spdi") or {}
-                ins = spdi.get("inserted_sequence")
-                dele = spdi.get("deleted_sequence")
-                if (
-                    isinstance(ins, str)
-                    and isinstance(dele, str)
-                    and len(ins) == 1
-                    and len(dele) == 1
-                    and ins != dele
-                    and isinstance(spdi.get("position"), int)
-                ):
-                    pos = spdi["position"]
-                    cname = spdi.get("seq_id")
-                    ins_seq, del_seq = ins, dele
-        if name is None or pos is None or cname is None:
-            return
-        allele_count = total_count = 0
-        for ann in psd.get("allele_annotations", []):
-            for fr in ann.get("frequency", []):
-                obs = fr.get("observation") or {}
-                if (
-                    obs.get("inserted_sequence") == ins_seq
-                    and obs.get("deleted_sequence") == del_seq
-                    and "study_name" in fr
-                    and isinstance(fr.get("allele_count"), int)
-                    and isinstance(fr.get("total_count"), int)
-                    and fr["allele_count"] <= fr["total_count"]
-                ):
-                    allele_count += fr["allele_count"]
-                    total_count += fr["total_count"]
-        maf = -1.0
-        if total_count > 0:
-            z = allele_count / total_count
-            if z > 0.5:
-                z = 1.0 - z
-            maf = z
-        self.add_snp(cname, pos, "rs" + str(name), maf)
-
-    # ---- merging (parallel builds) ----
-
-    def merge_from(self, other: "DbSnpIndexBuilder"):
-        """Fold another builder (one input file's worth) into this one,
-        preserving serial-order semantics: this builder's entries came
-        first, so cross-file duplicate positions keep the earlier file's
-        name, exactly as a serial pass over the files would."""
-        if self.header is None:
-            self.header = other.header
-        remap = [self._prefix_ix(p) for p in other.prefixes]
-        identity = all(r == i for i, r in enumerate(remap))
-        for cname, octg in other.contigs.items():
-            ctg = self.contigs.get(cname)
-            if ctg is None and identity:
-                # disjoint contig + same prefix table (the per-chromosome
-                # layout): adopt the shard's bins wholesale — no
-                # per-entry work, so the parallel build's merge cost is
-                # just the transport
-                self.contigs[cname] = octg
-                self.n_snps += sum(
-                    len(b.entries) for b in octg.bins.values()
-                )
-                continue
-            if ctg is None:
-                ctg = self.contigs[cname] = ContigBins(
-                    cname, octg.min_bin, octg.max_bin
-                )
-            ctg.min_bin = min(ctg.min_bin, octg.min_bin)
-            ctg.max_bin = max(ctg.max_bin, octg.max_bin)
-            for binx, ob in octg.bins.items():
-                b = ctg.bins.setdefault(binx, Bin())
-                for j, (off, pref_ix, digits) in enumerate(ob.entries):
-                    msk = 1 << off
-                    if b.mask & msk:
-                        continue
-                    b.mask |= msk
-                    if (ob.fq_mask >> j) & 1:
-                        b.fq_mask |= 1 << len(b.entries)
-                    b.entries.append((off, remap[pref_ix], digits))
-                    self.n_snps += 1
 
     # ---- output ----
 
@@ -333,9 +195,7 @@ class DbSnpIndexBuilder:
             fp.seek(32)
             for ctg in self.contigs.values():
                 ctg.offset = fp.tell()
-                if self.prebuilt is not None and ctg.name in self.prebuilt:
-                    blks = self.prebuilt[ctg.name]
-                elif pool is None:
+                if pool is None:
                     blks = self._encode_contig(ctg)
                 else:
                     blks = list(
@@ -372,196 +232,3 @@ class DbSnpIndexBuilder:
                 struct.pack("<QQQ", hdr_off, self.max_buf_size, len(comp))
             )
 
-
-def _parse_one_file(job):
-    """Worker-process body of the parallel build: one file -> one
-    builder shard (picklable; merged by the parent in file order)."""
-    path, input_type, maf_limit, select_names, aliases = job
-    shard = DbSnpIndexBuilder(
-        maf_limit=maf_limit, select_names=select_names, aliases=aliases
-    )
-    with _open_maybe_compressed(path) as f:
-        shard.read_stream(f, input_type)
-    return shard
-
-
-def _build_one_file(job):
-    """Worker-process body of the fast parallel build: parse one file AND
-    encode+compress its contig sections, shipping only the final bytes
-    (the reference's reader->serializer->compressor pipeline collapsed
-    into one worker per file, dbSNP_idx.c:53-93)."""
-    shard = _parse_one_file(job)
-    contigs = []
-    for ctg in shard.contigs.values():
-        contigs.append(
-            (
-                ctg.name,
-                ctg.min_bin,
-                ctg.max_bin,
-                shard._encode_contig(ctg),
-            )
-        )
-    return {
-        "prefixes": list(shard.prefixes),
-        "header": shard.header,
-        "n_snps": shard.n_snps,
-        "max_buf_size": shard.max_buf_size,
-        "contigs": contigs,
-    }
-
-
-def _merge_prebuilt(builder, shards) -> bool:
-    """Fold worker-encoded sections into `builder` as pre-compressed
-    contig payloads. Byte-identical to the serial build iff contig sets
-    are pairwise disjoint and every shard's prefix table is a prefix of
-    the merged first-seen order; returns False when those assumptions
-    fail (caller falls back to the serial path)."""
-    global_prefixes: List[str] = []
-    seen_contigs = set()
-    for sh in shards:
-        for i, p in enumerate(sh["prefixes"]):
-            if i < len(global_prefixes):
-                if global_prefixes[i] != p:
-                    return False
-            else:
-                global_prefixes.append(p)
-        for name, _mn, _mx, _blks in sh["contigs"]:
-            if name in seen_contigs:
-                return False
-            seen_contigs.add(name)
-    for p in global_prefixes:
-        builder._prefix_ix(p)
-    builder.prebuilt = {}
-    for sh in shards:
-        if builder.header is None:
-            builder.header = sh["header"]
-        builder.n_snps += sh["n_snps"]
-        builder.max_buf_size = max(
-            builder.max_buf_size, sh["max_buf_size"]
-        )
-        for name, mn, mx, blks in sh["contigs"]:
-            builder.contigs[name] = ContigBins(name, mn, mx)
-            builder.prebuilt[name] = blks
-    return True
-
-
-def _open_maybe_compressed(path: str):
-    """Text stream with magic-byte compression sniffing (the reference
-    forks gzip/bzip2/xz children, dbSNP_utils.c:163-242; here the Python
-    codec modules serve the same formats in-process)."""
-    with open(path, "rb") as probe:
-        magic = probe.read(6)
-    if magic[:2] == b"\x1f\x8b":
-        import gzip
-
-        return gzip.open(path, "rt")
-    if magic[:3] == b"BZh":
-        import bz2
-
-        return bz2.open(path, "rt")
-    if magic[:6] == b"\xfd7zXZ\x00":
-        import lzma
-
-        return lzma.open(path, "rt")
-    return open(path, "r")
-
-
-def main(argv=None):
-    import argparse
-
-    p = argparse.ArgumentParser(
-        prog="dbsnp_idx",
-        description="Build a bs_call dbSNP index from BED/VCF/JSON input",
-    )
-    p.add_argument("inputs", nargs="*", help="input files (default stdin)")
-    p.add_argument("-o", "--output", required=True)
-    p.add_argument("-d", "--description", default=None, help="track header")
-    p.add_argument(
-        "-t", "--type", choices=["AUTO", "BED", "JSON", "VCF"], default="AUTO"
-    )
-    p.add_argument("-c", "--chrom-alias", default=None)
-    p.add_argument("-s", "--selected", default=None)
-    p.add_argument("-m", "--maf-limit", type=float, default=1.0)
-    p.add_argument("-u", "--unsorted", action="append", default=[])
-    p.add_argument(
-        "-S", "--sorted", action="store_true",
-        help="inputs are contig-sorted (scheduling hint in the reference, "
-        "dbSNP_command_line.c:97-99; accepted for CLI parity — the "
-        "builder sorts bins regardless)",
-    )
-    p.add_argument("-@", "--threads", type=int, default=0)
-    args = p.parse_args(argv)
-    aliases = None
-    if args.chrom_alias:
-        aliases = {}
-        with open(args.chrom_alias) as f:
-            for line in f:
-                fld = line.rstrip("\n").split("\t")
-                if len(fld) >= 2 and fld[0] not in aliases:
-                    aliases[fld[0]] = fld[1]
-    select = None
-    if args.selected:
-        with open(args.selected) as f:
-            select = [l.strip() for l in f if l.strip()]
-    maf = args.maf_limit
-    if not (0.0 <= maf <= 0.5):
-        if maf != 1.0:
-            print("--maf-limit must be between 0 and 0.5", file=sys.stderr)
-        maf = 1.0 if maf == 1.0 else maf
-    builder = DbSnpIndexBuilder(
-        maf_limit=args.maf_limit if 0.0 <= args.maf_limit <= 0.5 else 1.0,
-        select_names=select,
-        aliases=aliases,
-        header=("track " + args.description) if args.description else None,
-    )
-    files = list(args.inputs) + list(args.unsorted)
-    threads = max(0, args.threads)
-    if not files:
-        builder.read_stream(sys.stdin, args.type.lower())
-    elif threads > 1 and len(files) > 1:
-        # the reference's N-reader pipeline (dbSNP_idx.c:53-93): parse
-        # each file into its own builder in a worker PROCESS (Python
-        # parsing is GIL-bound), then fold shards in FILE ORDER so dedup
-        # and prefix-id assignment match the serial pass byte-for-byte
-        import multiprocessing as mp
-
-        ctx = mp.get_context("spawn")
-        jobs = [
-            (
-                path,
-                args.type.lower(),
-                builder.maf_limit,
-                sorted(builder.select_names),
-                aliases,
-            )
-            for path in files
-        ]
-        with ctx.Pool(min(threads, len(files))) as pool:
-            shards = pool.map(_build_one_file, jobs)
-        if not _merge_prebuilt(builder, shards):
-            # shards share a contig or disagree on prefix order: re-parse
-            # per file and fold with the entry-level merge, which
-            # preserves serial dedup/prefix semantics exactly (rare;
-            # per-chromosome distributions are disjoint)
-            builder = DbSnpIndexBuilder(
-                maf_limit=builder.maf_limit,
-                select_names=builder.select_names,
-                aliases=aliases,
-                header=builder.header,
-            )
-            for job in jobs:
-                builder.merge_from(_parse_one_file(job))
-    else:
-        for path in files:
-            with _open_maybe_compressed(path) as f:
-                builder.read_stream(f, args.type.lower())
-    builder.write(args.output, threads=threads)
-    print(
-        f"Indexed {builder.n_snps} SNPs in {len(builder.contigs)} contigs",
-        file=sys.stderr,
-    )
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())
