@@ -10,7 +10,10 @@ tensor there and a CUDA tensor here.
 
 K3 writes every field of a chunk into ONE byte buffer, struct of arrays
 in LAYOUT order (each field's rows contiguous), so the fields come back
-to the host in a single D2H copy.
+to the host in a single D2H copy. On a row K3 flags `risk`, fs_hi,
+fs_int, flt and mac1 are unspecified (K3 skips the Fisher test of a row
+it already flags; the host recomputes every flagged row); every other
+field, gt1 among them, is computed on every row.
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ def emit_fields_cuda(gt_prob, max_gt, margin, off, counts2, mapq2_sum, ref,
                      tables: EmitTables, quirk: bool = True):
     """K3: the model's outputs (gt_prob [N,10] f64, max_gt [N] i32, margin
     [N] f64, off_sum [N] f64) plus the pileup's counts2 [N,2,8] i32 and
-    mapq2_sum [N] f32 (K12's on the fused tier) and ref [N] i32 -> the packed fields, uint8 [N * ROW_BYTES].
+    mapq2_sum [N] f32 (K12's on the fused tier) and ref [N] i32 -> the
+    packed fields, uint8 [N * ROW_BYTES].
     CUDA tensors only; counts its launches in `launches`."""
     dev = gt_prob.device
     n = gt_prob.shape[0] if gt_prob.dim() else 0

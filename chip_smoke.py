@@ -14,11 +14,15 @@ and g++. Phases, each of which raises on failure (exit code 1):
 4. K1, the pileup scatter, against its plain version on the card at
    4,096 reads x 256 bases over 32,832 positions;
 5. K3, the emit-fields kernel, against its plain version on the card at
-   32,832 positions: K2's pileup-entry outputs on phase 3's inputs plus
-   a mapq2 sum, a few rows of it at or above 2^24 (which both must
-   flag). Every field must be equal on the rows neither flags; the
-   number of rows whose risk bit differs is printed, with kernel and
-   plain times from CUDA events;
+   32,832 positions, on two batches through K2's pileup entry: (a)
+   phase 3's inputs plus a mapq2 sum, a few rows of it at or above 2^24
+   (which both must flag), and (b) a WGBS-like batch at depth 18
+   (`wgbs_inputs`); then on ragged sizes (1, 2, 127, 129 and 4,097
+   rows, and 129 rows one element into their storage) and on a batch
+   whose rows on the 128-row tile seams are het. Every field must be equal on
+   the rows neither flags, the codes no libm reaches on every row; the
+   het share, both risk counts and the number of rows whose risk bit
+   differs are printed, with kernel and plain times of both batches;
 6. K12, the pileup and the genotype model per position tile, against its
    plain version (`device_pileup_plain` then
    `call_genotypes_pileup_plain`) on the card, in f64 and f32, at phase
@@ -169,6 +173,83 @@ def genotype_inputs(np, n, seed):
     return counts2, qual_sum, counts.astype(np.int32), quals, ref
 
 
+# the port's copy of constants.BASE_TAB_ST: the category of a base on the
+# non-converted, C2T and G2A strands
+_BASE_TAB_ST = ((0, 1, 2, 3), (0, 5, 2, 7), (4, 1, 6, 3))
+
+
+def wgbs_inputs(np, n, seed, depth=18):
+    """Accumulators drawn from genotypes as a WGBS pileup has them, as
+    `tests/test_torch_emit.py` `called_pileup` draws them, vectorised:
+    94% hom-ref, 4% het, 2% hom-alt; reads on both bisulfite strands with
+    per-site methylation and 3% base errors; Poisson depth around `depth`
+    (the 600k fixture's 18) with 2% of positions at 6x it; 10% uncovered.
+    Returns counts2 [n,2,8] i32, qual_sum [n,8] f32, mapq2_sum [n] f32,
+    ref [n] i32."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(1, 5, n).astype(np.int32)
+    ref[rng.random(n) < 0.02] = 0
+    rb = np.maximum(ref - 1, 0)
+    u = rng.random(n)
+    other, hom_alt = rng.integers(0, 4, n), rng.integers(0, 4, n)
+    alleles = (np.where(u < 0.98, rb, hom_alt),
+               np.where(u < 0.94, rb, np.where(u < 0.98, other, hom_alt)))
+    d = rng.poisson(depth * np.where(rng.random(n) < 0.02, 6, 1))
+    d[rng.random(n) < 0.1] = 0
+    meth = rng.random(n)
+    tab = np.array(_BASE_TAB_ST)
+    rows = np.arange(n)
+    p = np.zeros((n, 8))
+    for b in alleles:
+        for s in (1, 2):
+            for bb, pb in ((b, 0.97), (rng.integers(0, 4, n), 0.03)):
+                w = 0.25 * pb
+                # C on C2T, G on G2A: unmethylated, it reads as T or A
+                meth_site = bb == s
+                np.add.at(p, (rows[meth_site], tab[s][3 if s == 1 else 0]),
+                          w * (1 - meth[meth_site]))
+                np.add.at(p, (rows, tab[s][bb]),
+                          np.where(meth_site, w * meth, w))
+    # both orientations carry the same probabilities
+    pv = np.repeat(p[:, None, :], 2, axis=1).reshape(n, 16)
+    counts2 = rng.multinomial(d, pv / pv.sum(axis=1, keepdims=True)).reshape(
+        n, 2, 8).astype(np.int32)
+    counts = counts2.sum(axis=1)
+    qual_sum = np.floor(counts * rng.uniform(25.0, 40.0, (n, 8))).astype(
+        np.float32
+    )
+    mq = np.where(rng.random(n) < 0.9, 60, rng.integers(0, 60, n))
+    mapq2 = (counts.sum(axis=1) * mq * mq).astype(np.float32)
+    return counts2, qual_sum, mapq2, ref
+
+
+def k3_batch(torch, np, dev, kind, n=N_POS):
+    """K3's inputs on the card: K2's f64 pileup-entry outputs on a batch
+    plus its counts2, mapq2_sum and ref, and the emit tables. kind "a":
+    `genotype_inputs` (a het-rich random mix) with a mapq2 sum, 8 rows of
+    it at or above 2^24; kind "b": `wgbs_inputs` at depth 18. Returns
+    (args of `emit_fields_cuda`, the rows past 2^24)."""
+    from bs_call_tpu_torch.ops.emit_tables import emit_tables
+    from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
+    from bs_call_tpu_torch.ops.params import ModelParams, model_tables
+
+    if kind == "a":
+        counts2, qual_sum, counts, _quals, ref = genotype_inputs(np, n, 0)
+        rng = np.random.default_rng(2)
+        mq = rng.integers(0, 61, n)
+        mapq2 = (counts.sum(axis=1) * mq * mq).astype(np.float32)
+        deep = rng.choice(n, min(8, n), replace=False)
+        mapq2[deep] = np.float32(2.0**24) + 512 * np.arange(len(deep))
+    else:
+        counts2, qual_sum, mapq2, ref = wgbs_inputs(np, n, 0)
+        deep = np.nonzero(mapq2 >= 2.0**24)[0]
+    c2, qs, m2, r = (torch.from_numpy(a).to(dev)
+                     for a in (counts2, qual_sum, mapq2, ref))
+    tables = model_tables(ModelParams(), torch.float64, dev)
+    k2 = K2.genotype_pileup(c2, qs, r, tables)[:4]
+    return (*k2, c2, m2, r, emit_tables(dev)), deep
+
+
 def check_k2(torch, np, dev):
     from bs_call_tpu_torch.ops import genotype as G
     from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
@@ -229,63 +310,112 @@ def check_k2(torch, np, dev):
     return results
 
 
-def check_k3(torch, np, dev):
-    from bs_call_tpu_torch.ops.emit_tables import emit_tables
+# K3's fields that no libm reaches: equal to the plain version's on every
+# row, flagged or not (the host reads gt1 of flagged rows as neighbours)
+K3_EXACT_EVERYWHERE = ("covered", "gt1", "max_gt", "ref5", "dp1", "gl_len",
+                       "cg_code", "cond_cg", "het")
+
+
+def compare_k3(torch, np, tag, args):
+    """K3 against its plain version on the same inputs: every field
+    equal on the rows neither flags (fs_hi, the Fisher log10 p beside its
+    integer fs_int, within 1e-12 relative: the same libdevice exp/log on
+    both sides), the fields of K3_EXACT_EVERYWHERE on every row. Returns
+    the unpacked fields (kernel, plain), the rows neither flags and the
+    largest fs_hi difference there."""
     from bs_call_tpu_torch.ops.kernels import emit_cuda as K3
     from bs_call_tpu_torch.ops.kernels import emit_device as E
-    from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
-    from bs_call_tpu_torch.ops.params import ModelParams, model_tables
 
-    counts2, qual_sum, counts, _quals, ref = genotype_inputs(np, N_POS, 0)
-    rng = np.random.default_rng(2)
-    mq = rng.integers(0, 61, N_POS)
-    mapq2 = (counts.sum(axis=1) * mq * mq).astype(np.float32)
-    deep = rng.choice(N_POS, 8, replace=False)
-    mapq2[deep] = np.float32(2.0**24) + 512 * np.arange(8)
-    c2, qs, m2, r = (torch.from_numpy(a).to(dev)
-                     for a in (counts2, qual_sum, mapq2, ref))
-    tables = model_tables(ModelParams(), torch.float64, dev)
-    et = emit_tables(dev)
-    k2 = K2.genotype_pileup(c2, qs, r, tables)[:4]
-    args = (*k2, c2, m2, r, et)
+    n = args[0].shape[0]
     got = K3.emit_fields_cuda(*args)
     want = E.pack_fields(E.emit_fields_plain(*args))
     torch.cuda.synchronize()
-    g = E.unpack_fields(got.cpu().numpy(), N_POS)
-    w = E.unpack_fields(want.cpu().numpy(), N_POS)
+    g = E.unpack_fields(got.cpu().numpy(), n)
+    w = E.unpack_fields(want.cpu().numpy(), n)
     ok = ~(g["risk"] | w["risk"])
     for name, a in g.items():
+        rows = slice(None) if name in K3_EXACT_EVERYWHERE else ok
         if name not in ("risk", "fs_hi") and not np.array_equal(
-            a[ok].view(np.uint8), w[name][ok].view(np.uint8)
+            a[rows].view(np.uint8), w[name][rows].view(np.uint8)
         ):
-            raise AssertionError(f"K3 {name} differs from the plain version")
-    # the Fisher log10 p, an f64 value beside its integer fs_int: the same
-    # libdevice exp/log on both sides, tolerance 1e-12 relative
-    err = float(np.abs(g["fs_hi"][ok] - w["fs_hi"][ok]).max())
+            raise AssertionError(f"K3 {tag}: {name} differs from the plain "
+                                 f"version")
+    err = float(np.abs(g["fs_hi"][ok] - w["fs_hi"][ok]).max(initial=0.0))
     np.testing.assert_allclose(g["fs_hi"][ok], w["fs_hi"][ok], rtol=1e-12,
                                atol=1e-15)
-    cov = g["covered"][deep]
-    if not (g["risk"][deep][cov].all() and w["risk"][deep][cov].all()):
-        raise AssertionError("K3: a mapq2 sum past 2^24 was not flagged")
-    if ok.sum() < N_POS // 2:
-        raise AssertionError(f"K3: only {ok.sum()} rows unflagged")
-    n_diff = int((g["risk"] != w["risk"]).sum())
-    ms = device_ms(lambda: K3.emit_fields_cuda(*args), torch)
-    eager_ms = time_ms(lambda: K3.emit_fields_cuda(*args), torch)
-    plain_ms = time_ms(lambda: E.pack_fields(E.emit_fields_plain(*args)),
-                       torch)
+    if not (g["risk"][[0, -1]].all() and w["risk"][[0, -1]].all()):
+        raise AssertionError(f"K3 {tag}: the chunk's edges not flagged")
+    return g, w, ok, err
+
+
+def check_k3(torch, np, dev):
+    """K3 on the two batches of `k3_batch` at N_POS, then on ragged sizes
+    and on a batch whose het rows sit on the 128-row tile seams; both
+    batches timed."""
+    from bs_call_tpu_torch.ops.kernels import emit_cuda as K3
+    from bs_call_tpu_torch.ops.kernels import emit_device as E
+
+    result, batches, errs = {}, {}, []
+    for kind in "ab":
+        args, deep = k3_batch(torch, np, dev, kind)
+        batches[kind] = args
+        g, w, ok, err = compare_k3(torch, np, f"batch {kind}", args)
+        errs.append(err)
+        cov = g["covered"][deep]
+        if not (g["risk"][deep][cov].all() and w["risk"][deep][cov].all()):
+            raise AssertionError("K3: a mapq2 sum past 2^24 was not flagged")
+        if ok.sum() < N_POS // 2:
+            raise AssertionError(f"K3: only {ok.sum()} rows unflagged")
+        n_diff = int((g["risk"] != w["risk"]).sum())
+        ms = device_ms(lambda: K3.emit_fields_cuda(*args), torch)
+        eager_ms = time_ms(lambda: K3.emit_fields_cuda(*args), torch)
+        plain_ms = time_ms(
+            lambda: E.pack_fields(E.emit_fields_plain(*args)), torch)
+        log(f"K3 emit_fields_f64 batch {kind}: N={N_POS}, het share "
+            f"{g['het'].mean():.4f}; every field equal on {ok.sum()} rows "
+            f"neither flags (max|d fs|={err:.3e}, tol 1e-12 relative); risk "
+            f"bits differ on {n_diff} rows (kernel {int(g['risk'].sum())}, "
+            f"plain {int(w['risk'].sum())} flagged); kernel {ms:.4f} ms "
+            f"(eager {eager_ms:.4f} ms), plain {plain_ms:.4f} ms")
+        sfx = "" if kind == "a" else "_wgbs"
+        result.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
+                       "eager_ms" + sfx: eager_ms,
+                       "risk_diff_rows" + sfx: n_diff})
+    # ragged sizes (the last tile short, chunks of one or two rows), a
+    # chunk whose tensors start one element into their storage (not
+    # 16-byte aligned: K3 copies them with 4-byte copies, not bulk
+    # copies), and tile seams
+    a, b = batches["a"], batches["b"]
+    cases = [(f"n={m}", tuple(x[:m] for x in b[:7]) + b[7:])
+             for m in (1, 2, 127, 129, 4097)]
+
+    def one_element_in(x):
+        out = x.new_empty(x.numel() + 1)[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    cases.append(("n=129 unaligned",
+                  tuple(one_element_in(x[:129]) for x in b[:7]) + b[7:]))
+    seam = torch.zeros(N_POS, dtype=torch.bool, device=dev)
+    seam[0::128] = True
+    seam[127::128] = True
+    cases.append(("het rows on the seams", tuple(
+        torch.where(seam.view(-1, *[1] * (x.dim() - 1)), y, x)
+        for x, y in zip(b[:7], a[:7])) + b[7:]))
+    for tag, args in cases:
+        g, w, ok, err = compare_k3(torch, np, tag, args)
+        errs.append(err)
+        log(f"K3 {tag}: equal on {ok.sum()} rows neither flags, het "
+            f"{int(g['het'].sum())}, risk bits differ on "
+            f"{int((g['risk'] != w['risk']).sum())} rows")
+    if not g["het"][seam.cpu().numpy()].mean() > 0.9:
+        raise AssertionError("K3 seams: the seam rows are not het")
     # reads gt_prob, max_gt, margin, off_sum, counts2, mapq2_sum, ref;
     # writes the packed row; its f64 work is far below its bytes
     b_ms, b_by = bound((80 + 4 + 8 + 8 + 64 + 4 + 4 + E.ROW_BYTES) * N_POS)
-    log(f"K3 emit_fields_f64: N={N_POS} every field equal on {ok.sum()} "
-        f"rows neither flags (max|d fs|={err:.3e}, tol 1e-12 relative); "
-        f"risk bits differ on {n_diff} rows "
-        f"(kernel {int(g['risk'].sum())}, plain {int(w['risk'].sum())} "
-        f"flagged); kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "eager_ms": eager_ms}
+    log(f"K3 emit_fields_f64: bound {b_ms:.4f} ms ({b_by}) at N={N_POS}")
+    return {"max_abs_err": max(errs), **result, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 def read_batch(np, R, L, n_pos, seed):

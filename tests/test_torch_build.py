@@ -4,6 +4,7 @@ all started before any is waited on, then one link; a build keyed by the
 sources is reused, an edit rebuilds, a failed compile raises with the
 compiler's output. The real nvcc runs only on the card's machine."""
 
+import importlib.util
 import json
 import os
 import stat
@@ -85,3 +86,33 @@ def test_build_failure_raises_with_compiler_output(fake_tree):
         _build.build()
     built = [f for _r, _d, files in os.walk(_build.BUILD) for f in files]
     assert built == []
+
+
+def _phase_tool():
+    path = os.path.join(os.path.dirname(__file__), "..", "tools",
+                        "kernel_phases.py")
+    spec = importlib.util.spec_from_file_location("kernel_phases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("kernel, source, cuts", [
+    ("k12", "pileup_genotype.cu", ("pileup", "model", "launch")),
+    ("k3", "emit.cu", ("no_fisher", "light", "launch")),
+])
+def test_phase_cuts_apply_to_the_kernel_sources(kernel, source, cuts):
+    """`tools/kernel_phases.py` times a kernel cut at its phase
+    boundaries by editing lines of its source: on this checkout's source
+    every cut finds its line and changes the text, and the full variant is
+    the source itself."""
+    tool = _phase_tool()
+    with open(os.path.join(_build.CSRC, source)) as f:
+        src = f.read()
+    variants = getattr(tool, f"{kernel}_variants")(src)
+    assert variants["full"] == src
+    assert sorted(variants) == sorted(("full", *cuts))
+    for name in cuts:
+        assert variants[name] != src, name
+    with pytest.raises(RuntimeError, match="matches"):
+        getattr(tool, f"{kernel}_variants")("// no kernel here\n")

@@ -189,16 +189,19 @@ def test_fisher_plain_matches_oracle(tables):
 
 @pytest.mark.parametrize("kind, quirk", [
     ("random", True), ("random", False), ("called_deep", True),
+    ("called", True),
 ])
 def test_emit_fields_plain_matches_host_prep(tables, kind, quirk):
     """quirk=False is --fix-reference-quirks: the GT genotype's Fisher
-    table without the reference's counts[0][6] (call_genotypes.c:98)."""
+    table without the reference's counts[0][6] (call_genotypes.c:98).
+    "called" is at the 600k fixture's depth of 18, "called_deep" at 50."""
     rng = np.random.default_rng(11)
     n = 1024
     if kind == "random":
         inputs = random_pileup(rng, n)
     else:
-        inputs = called_pileup(rng, n, depth=50)
+        inputs = called_pileup(rng, n, depth=50 if kind == "called_deep"
+                               else 18)
     k2, f = port_fields(*inputs, tables, quirk=quirk)
     want, agg, fs = host_prep(*inputs, k2, quirk=quirk)
     covered = agg["n"] > 0
@@ -222,6 +225,31 @@ def test_emit_fields_plain_matches_host_prep(tables, kind, quirk):
     if kind == "called_deep":
         deep_het = f["het"] & (inputs[0].sum(axis=(1, 2)) >= E.LFACT_N)
         assert risk[deep_het].all()
+
+
+def test_fields_are_local_to_a_tile_and_its_halo(tables):
+    """K3 tiles a chunk by 128 rows and reads one neighbour row on each
+    side (the CG automaton's): every field of a row is a function of the
+    row and those two neighbours alone. Each tile of a called chunk, with
+    its halo, through the plain version gives its interior rows' fields
+    as the whole chunk does, the risk bit included (the halo keeps the
+    interior rows off the slice's edges; the chunk's own edges are at the
+    slice's edges too)."""
+    n, T = 700, 128  # a ragged last tile
+    mt, et = tables
+    c2, qs, m2, r = as_torch(
+        *called_pileup(np.random.default_rng(19), n, depth=18))
+    args = (*call_genotypes_pileup(c2, qs, r, mt)[:4], c2, m2, r)
+    whole = E.emit_fields_plain(*args, et)
+    assert whole["het"].any() and not whole["risk"][1:-1].all()
+    for base in range(0, n, T):
+        lo, hi = max(base - 1, 0), min(base + T + 1, n)
+        tile = E.emit_fields_plain(*(a[lo:hi] for a in args), et)
+        inner = slice(base - lo, base - lo + min(T, n - base))
+        for name, v in tile.items():
+            np.testing.assert_array_equal(
+                v[inner].numpy(), whole[name][base:base + T].numpy(),
+                err_msg=f"{name} at tile {base // T}")
 
 
 def test_gq_band_flags_z1_near_one(tables):
@@ -443,3 +471,101 @@ def test_kernel_matches_plain_on_card(tables):
             np.testing.assert_array_equal(
                 a[ok].view(np.uint8), b[ok].view(np.uint8), err_msg=name
             )
+
+
+# fields that no libm reaches: equal on every row, flagged or not (the
+# host reads gt1 of flagged rows as their neighbours' context)
+EXACT_EVERYWHERE = ("covered", "gt1", "max_gt", "ref5", "dp1", "gl_len",
+                    "cg_code", "cond_cg", "het")
+
+
+def direct_inputs(rng, n, het, long_walks=False):
+    """K3's inputs drawn without the model: every row covered, max_gt a
+    het genotype on every row (het=True) or on none (het=False), random
+    posteriors, off and margins. long_walks: 10-19 reads in every
+    category, so that het rows' Fisher walks take ~50 steps (~6,000 a
+    tile of 128 rows, several of the kernel's rounds of 1,024) with
+    tables still below 256 reads."""
+    counts2, _qs, _m2, ref = random_pileup(rng, n)
+    if long_walks:
+        counts2 = rng.integers(10, 20, (n, 2, 8)).astype(np.int32)
+    counts2[counts2.sum(axis=(1, 2)) == 0, 0, 0] = 3
+    het_tab = emit_tables(CPU).het.numpy()
+    max_gt = rng.choice(np.nonzero(het_tab == het)[0], n).astype(np.int32)
+    gt_prob = -rng.exponential(2.0, (n, 10))
+    off = rng.exponential(0.05, n)
+    margin = rng.uniform(1e-3, 5.0, n)
+    mq = rng.integers(10, 61, n)
+    mapq2 = (counts2.sum(axis=(1, 2)) * mq * mq).astype(np.float32)
+    return gt_prob, max_gt, margin, off, counts2, mapq2, ref
+
+
+def one_element_in(t):
+    """A contiguous copy of t that starts one element into its storage."""
+    out = t.new_empty(t.numel() + 1)[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, n", [
+    ("called", 4096), ("called", 1), ("called", 2), ("called", 127),
+    ("called", 129), ("called", 4097), ("called_unaligned", 129),
+    ("all_het", 4096), ("no_het", 4096), ("deep_het", 4096),
+    ("long_walks", 1024),
+])
+def test_tiled_kernel_matches_plain_on_card(tables, kind, n):
+    """K3 against its plain version on the card: a WGBS-like chunk at
+    depth 18 (through K2), ragged sizes around the 128-row tile, a chunk
+    whose tensors start one element into their storage (not 16-byte
+    aligned, so the kernel copies them with 4-byte copies instead of bulk
+    copies), every row het, no row het, and het rows with mapq2_sum at
+    or above 2^24 (flagged by both, without a walk in the kernel), and
+    het rows whose walks fill several of the kernel's rounds a tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda")
+    et = emit_tables(dev)
+    rng = np.random.default_rng(31)
+    if kind.startswith("called"):
+        counts2, qual_sum, mapq2, ref = called_pileup(rng, n, 18)
+        c2, qs, m2, r = as_torch(counts2, qual_sum, mapq2, ref, device=dev)
+        mt = model_tables(ModelParams(), torch.float64, dev)
+        args = (*call_genotypes_pileup(c2, qs, r, mt)[:4], c2, m2, r)
+        if kind == "called_unaligned":
+            args = tuple(one_element_in(a) for a in args)
+            assert args[0].data_ptr() % 16 and args[4].data_ptr() % 16
+    else:
+        inputs = direct_inputs(rng, n, het=kind != "no_het",
+                               long_walks=kind == "long_walks")
+        deep = np.arange(0, n, 7)
+        if kind == "deep_het":
+            inputs[5][deep] = 2.0**24 + 4096
+        args = tuple(as_torch(*inputs, device=dev))
+    n0 = emit_cuda.emit_fields_cuda.launches
+    got = E.emit_fields(*args, et)
+    assert emit_cuda.emit_fields_cuda.launches == n0 + 1
+    want = E.pack_fields(E.emit_fields_plain(*args, et))
+    torch.cuda.synchronize()
+    g = E.unpack_fields(got.cpu().numpy(), n)
+    w = E.unpack_fields(want.cpu().numpy(), n)
+    assert g["risk"][[0, -1]].all()  # the chunk's edges
+    if kind in ("all_het", "deep_het", "long_walks"):
+        assert g["het"].all()
+    if kind == "no_het":
+        assert not g["het"].any()
+    if kind == "deep_het":
+        assert g["risk"][deep].all() and w["risk"][deep].all()
+    for name in EXACT_EVERYWHERE:
+        np.testing.assert_array_equal(g[name], w[name], err_msg=name)
+    ok = ~(g["risk"] | w["risk"])
+    if n > 100:
+        assert ok.sum() > n // 2
+    for name, a in g.items():
+        if name == "fs_hi":
+            np.testing.assert_allclose(a[ok], w[name][ok], rtol=1e-12,
+                                       atol=1e-15)
+        elif name != "risk":
+            np.testing.assert_array_equal(
+                a[ok].view(np.uint8), w[name][ok].view(np.uint8),
+                err_msg=name)

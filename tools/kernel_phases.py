@@ -1,0 +1,236 @@
+#!/usr/bin/env python3
+"""Where a kernel's time goes, on one NVIDIA GPU.
+
+    python3 tools/kernel_phases.py k12
+    python3 tools/kernel_phases.py k3 [--src LABEL=PATH ...]
+
+Run from the root of a checkout on a machine with a CUDA device and
+nvcc. Builds one kernel source several times, each a variant cut at a
+phase boundary, all nvcc runs started together, and times each with
+`chip_smoke.device_ms` (CUDA graph replay, device time only).
+
+k12, `bs_call_tpu_torch/csrc/pileup_genotype.cu`, on `chip_smoke.py`'s
+K1 batch (4,096 reads x 256 bases over 32,832 positions, f64):
+
+* full: the kernel as it ships;
+* pileup: stops after the tile's pileup planes are written;
+* model: skips the read batch and runs the model on synthetic counts
+  (0-5 a category, quality 30);
+* launch: returns at once (the floor of one launch in a graph).
+
+k3, `bs_call_tpu_torch/csrc/emit.cu`, on `chip_smoke.k3_batch`'s two
+batches of 32,832 positions: (a) `genotype_inputs`, a het-rich random
+mix, and (b) `wgbs_inputs`, WGBS-like at depth 18:
+
+* full: the kernel as it ships;
+* no_fisher: het forced false, so no Fisher walk runs;
+* light: no Fisher and no GL (every GL slot the fixed -99.999, so
+  neither the gt_prob gather nor the winner's band check runs);
+* launch: returns at once.
+
+The K3 cuts are edits of lines that every version of `emit.cu` has, so
+`--src` may name another version of the source, such as a parent
+commit's unpacked with `git archive`. With several, each variant is
+timed on every version in turns (A B B A), in one process on one card.
+The variants' outputs are wrong by construction; only their times are
+read. Prints one line per variant (and batch) with the card, and each
+K3 batch's het share and risk count from the first version's full
+kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import glob
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(HERE, "bs_call_tpu_torch", "csrc")
+
+
+def _cut(src: str, old: str, new: str) -> str:
+    """src with its one occurrence of `old` (a regex) replaced by `new`."""
+    out, k = re.subn(old, new, src)
+    if k != 1:
+        raise RuntimeError(f"{k} matches of {old!r}, expected one")
+    return out
+
+
+def k12_variants(src: str) -> dict:
+    model = (
+        "const int n_batch = 0;\n"
+        "  for (int j = tid; j < 16 * kStride; j += kThreads)\n"
+        "    s_counts[j] = ((j * 7 + blockIdx.x) % 11) % 6;\n"
+        "  for (int j = tid; j < 8 * kStride; j += kThreads)\n"
+        "    s_qsum[j] = 30 * (((j * 7 + blockIdx.x) % 11) % 6);")
+    return {
+        "full": src,
+        "pileup": _cut(src, r"(?=  // ---- the model, two threads a position ----)",
+                       "  return;\n"),
+        "model": _cut(
+            src, re.escape("const int n_batch = r1 > r0 ? (r1 - r0 + per - 1)"
+                           " / per : 0;"), model.replace("\\", "\\\\")),
+        "launch": _cut(src, r"(?=  const int tid = threadIdx\.x;\n)",
+                       "  if (n_pos > 0) return;\n"),
+    }
+
+
+_NO_HET = (re.escape("const bool het = covered && s_tab[kHet + mx];"),
+           "const bool het = false;")
+_NO_GL = (re.escape("const int idx = s_tab[kGlIdx + key * 5 + k];"),
+          "const int idx = -2;")
+
+
+def k3_variants(src: str) -> dict:
+    no_fisher = _cut(src, *_NO_HET)
+    return {
+        "full": src,
+        "no_fisher": no_fisher,
+        "light": _cut(no_fisher, *_NO_GL),
+        "launch": _cut(src, r"(emit_fields_kernel\([^)]*\)\s*\{)",
+                       r"\1\n  if (n > 0) return;"),
+    }
+
+
+def build(versions: dict, variants, tmp: str) -> dict:
+    """{(label, variant): ctypes library}, one nvcc per library, all
+    started together; each version's headers are the `.cuh` files beside
+    its source."""
+    from bs_call_tpu_torch.ops.kernels import _build
+
+    nvcc = _build._nvcc()
+    procs = {}
+    for label, path in versions.items():
+        with open(path) as f:
+            src = f.read()
+        for name, text in variants(src).items():
+            d = os.path.join(tmp, label, name)
+            os.makedirs(d)
+            with open(os.path.join(d, "k.cu"), "w") as f:
+                f.write(text)
+            for h in glob.glob(os.path.join(os.path.dirname(path), "*.cuh")):
+                shutil.copy(h, d)
+            procs[label, name] = subprocess.Popen(
+                [nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
+                 os.path.join(d, "k.so"), os.path.join(d, "k.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+    libs = {}
+    for key, proc in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{out}")
+        if key[1] == "full":
+            regs = [ln.strip() for ln in out.splitlines()
+                    if "registers" in ln or "spill" in ln]
+            print(f"{key[0]} ptxas: " + " | ".join(regs), flush=True)
+        libs[key] = ctypes.CDLL(os.path.join(tmp, *key, "k.so"))
+    return libs
+
+
+def in_turns(labels, lib_of, timer, use):
+    """{label: [ms, ...]}: `timer` on every version, in turns A B B A
+    (one version: three times)."""
+    order = labels + labels[::-1] if len(labels) > 1 else labels * 3
+    times = {label: [] for label in labels}
+    for label in order:
+        use(lib_of(label))
+        times[label].append(timer())
+    return times
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("kernel", choices=("k12", "k3"))
+    ap.add_argument("--src", action="append", default=[],
+                    metavar="LABEL=PATH",
+                    help="a version of the kernel's source (default: this "
+                         "checkout's); repeat to time versions in turns")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+
+    import chip_smoke as S
+    from bs_call_tpu_torch.ops.kernels import _build
+
+    if not torch.cuda.is_available():
+        print("kernel_phases: no CUDA device visible to PyTorch",
+              file=sys.stderr)
+        return 1
+    fname = "pileup_genotype.cu" if args.kernel == "k12" else "emit.cu"
+    versions = dict(s.split("=", 1) for s in args.src) or {
+        "checkout": os.path.join(CSRC, fname)}
+    labels = list(versions)
+    variants = k12_variants if args.kernel == "k12" else k3_variants
+    dev = torch.device("cuda", 0)
+    card = S.card_line()
+    tmp = tempfile.mkdtemp(prefix="kernel_phases_")
+    try:
+        libs = build(versions, variants, tmp)
+        if args.kernel == "k12":
+            from bs_call_tpu_torch.ops.kernels import pileup_device as PD
+            from bs_call_tpu_torch.ops.kernels import (
+                pileup_genotype_cuda as K,
+            )
+            from bs_call_tpu_torch.ops.params import (
+                ModelParams,
+                model_tables,
+            )
+
+            n = S.N_POS
+            batch = S.read_batch(np, 4096, 256, n, 1)
+            R, L = batch[0].shape
+            tiles = torch.from_numpy(PD.tile_rows(batch[1], R, n, L)).to(dev)
+            kargs = [torch.from_numpy(a).to(dev) for a in batch]
+            ref = torch.from_numpy(
+                np.random.default_rng(4).integers(0, 5, n).astype(np.int32)
+            ).to(dev)
+            tables = model_tables(ModelParams(), torch.float64, dev)
+            calls = {"": lambda: K.pileup_genotype(
+                *kargs, tiles, ref, n, 20, tables)}
+        else:
+            from bs_call_tpu_torch.ops.kernels import emit_cuda as K
+            from bs_call_tpu_torch.ops.kernels import emit_device as E
+
+            calls = {}
+            for kind in "ab":
+                kargs = S.k3_batch(torch, np, dev, kind)[0]
+                calls[f" batch {kind}"] = (
+                    lambda a=kargs: K.emit_fields_cuda(*a))
+
+        def use(lib):
+            # point the launcher at this variant's library
+            K._lib = None
+            _build._lib = lib
+
+        if args.kernel == "k3":
+            use(libs[labels[0], "full"])
+            for tag, call in calls.items():
+                f = E.unpack_fields(call().cpu().numpy(), S.N_POS)
+                print(f"[{card}] K3{tag}: het share "
+                      f"{f['het'].mean():.4f} ({int(f['het'].sum())} of "
+                      f"{S.N_POS}), risk {int(f['risk'].sum())} "
+                      f"({labels[0]})", flush=True)
+        for name in [v for lb, v in libs if lb == labels[0]]:
+            for tag, call in calls.items():
+                times = in_turns(labels, lambda lb: libs[lb, name],
+                                 lambda: S.device_ms(call, torch), use)
+                cells = "; ".join(
+                    f"{lb} " + ", ".join(f"{t:.4f}" for t in ts)
+                    for lb, ts in times.items())
+                print(f"[{card}] {args.kernel.upper()} {name}{tag}: {cells} ms",
+                      flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
