@@ -5,7 +5,9 @@
 kernels and raises when PyTorch sees no CUDA device; `--device cpu` runs
 their plain PyTorch versions. Output bytes equal those of
 `python -m bs_call_tpu.cli --device cpu` on the same input and flags.
-`--shards` and `--num-hosts` above 1 are not yet ported and exit 2.
+`--shards N` runs N worker processes, one contig group each
+(`parallel/shard_runner.py`), every one on the named device;
+`--num-hosts` above 1 is not yet ported and exits 2.
 
 Run as `python -m bs_call_tpu_torch.cli in.bam -r ref.fa -o out.vcf ...`.
 """
@@ -90,8 +92,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--shards",
         type=int,
         default=0,
-        help="run contig-sharded across N worker processes (not yet "
-        "ported: N > 1 exits 2)",
+        help="run contig-sharded across N worker processes, each on "
+        "--device (auto-degrades to one process below "
+        "BS_CALL_SHARD_MIN_CORES cores unless BS_CALL_FORCE_SHARDS=1)",
     )
     # multi-host runs are not yet ported: the flags parse, and N > 1
     # exits 2
@@ -240,14 +243,13 @@ def _input_is_compressed(path) -> bool:
 
 def main(argv=None, tracer=None):
     """CLI entry. `tracer` (a `bs_call_tpu_torch.utils.trace.Tracer`), when
-    given, collects stage times and per-tier position counts."""
+    given, collects stage times and per-tier position counts (of a
+    sharded run, the workers' counts and kernel launches summed)."""
     args = build_parser().parse_args(argv)
-    if (args.shards and args.shards > 1) or (
-        args.num_hosts and args.num_hosts > 1
-    ):
+    if args.num_hosts and args.num_hosts > 1:
         print(
-            "bs_call_torch: --shards and --num-hosts are not yet ported "
-            "to bs_call_tpu_torch; run a single process",
+            "bs_call_torch: --num-hosts is not yet ported to "
+            "bs_call_tpu_torch; run on one host",
             file=sys.stderr,
         )
         return 2
@@ -257,10 +259,14 @@ def main(argv=None, tracer=None):
             file=sys.stderr,
         )
         return 1
-    device = resolve_device(args.device)
     if not args.input_file:
         args.input_file = "-"
     cfg = args_to_config(args)
+    if args.shards and args.shards > 1:
+        rc = _run_shards(args, cfg, tracer)
+        if rc is not None:
+            return rc
+    device = resolve_device(args.device)
     stats = None
     if cfg.report_file:
         from bs_call_tpu_torch.stats.collect import BsStats
@@ -285,6 +291,59 @@ def main(argv=None, tracer=None):
 
         with open(cfg.report_file, "w") as f:
             write_report(f, cfg, stats, table, dbsnp=cfg.dbsnp_file)
+    return 0
+
+
+def _run_shards(args, cfg, tracer):
+    """The `--shards N` branch of `bs_call_tpu.cli.main`: an exit code, or
+    None when the run degrades to one process. The parent opens no device
+    (each worker resolves `--device` itself)."""
+    if not cfg.output_file:
+        print("--shards requires -o", file=sys.stderr)
+        return 1
+    if cfg.contig_bed:
+        # the shard runner partitions the whole contig universe itself; a
+        # user -C selection would be silently discarded
+        print(
+            "--shards partitions all contigs and cannot be combined "
+            "with -C; run the region selection as a single process "
+            "or shard externally per region",
+            file=sys.stderr,
+        )
+        return 1
+    if cfg.input_file == "-":
+        print(
+            "--shards requires a seekable input file (workers each "
+            "read the input); cannot shard a stdin stream",
+            file=sys.stderr,
+        )
+        return 1
+    from bs_call_tpu_torch.parallel.shard_runner import (
+        run_sharded,
+        shards_degrade_reason,
+    )
+
+    degrade = shards_degrade_reason(args.shards)
+    if degrade is not None:
+        # --shards must never be a pessimization: same output bytes
+        # either way, so degrading is purely a scheduling decision
+        print(f"bs_call: --shards {args.shards}: {degrade}",
+              file=sys.stderr)
+        return None
+    stats, ctg_stats = run_sharded(
+        cfg, args.device, args.shards, cfg.output_file,
+        collect_stats=bool(cfg.report_file), tracer=tracer,
+    )
+    if cfg.report_file and stats is not None:
+        from types import SimpleNamespace
+
+        from bs_call_tpu_torch.stats.report import write_report
+
+        tbl = SimpleNamespace(contigs=[
+            SimpleNamespace(name=n, ctg_stats=cs) for n, cs in ctg_stats
+        ])
+        with open(cfg.report_file, "w") as f:
+            write_report(f, cfg, stats, tbl, dbsnp=cfg.dbsnp_file)
     return 0
 
 

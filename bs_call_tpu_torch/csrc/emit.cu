@@ -13,8 +13,8 @@
 //
 // Inputs, per position i < n (one chunk of the fused tier):
 //   the model's   gt_prob [n,10] f64, max_gt [n] i32, margin [n] f64,
-//                 off_sum [n] f64 (K12's, or K2's)
-//   the pileup's  counts2 [n,2,8] i32, mapq2_sum [n] f32 (K12's, or K1's)
+//                 off_sum [n] f64 (K12's)
+//   the pileup's  counts2 [n,2,8] i32, mapq2_sum [n] f32 (K12's)
 //   ref [n] i32 (0..4), the emit tables (ops/emit_tables.py: `packed`
 //   int32 in PACKED_ORDER, lfact [256] f64), and quirk (the reference's
 //   counts[0][6] in the GT genotype's Fisher table).

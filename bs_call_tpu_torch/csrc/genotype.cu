@@ -17,26 +17,19 @@
 // so the [N,10] plane is written once and never read back.
 //
 // Bound. Per position about 200 flops, up to 14 log, 9 exp and 1 log1p,
-// against about 100 bytes read (column entry: 8+8 int32 + ref) and
+// against about 68 bytes read (counts and quals [8] int32, ref) and
 // 10*sizeof(T)+12 bytes written. In f64 that is bound by the FP64 units
 // and the log/exp sequences, not by memory; in f32 by the f32 special
 // functions and the stores. Nothing here is tuned yet: the block keeps
 // ll in registers and spends no shared memory beyond the tables.
 //
-// Two entries:
-//   column: counts [N,8] i32, quals [N,8] i32, ref [N] i32 (host-built
-//           pileup columns: the column tier and --no-exact);
-//   pileup: counts2 [N,2,8] i32, qual_sum [N,8] f32, ref [N] i32 (K1's
-//           output): counts summed over orientation, quals rounded with
-//           the reference's f32 rule floorf(0.5f + qs/(float)n) in
-//           round-to-nearest intrinsics (never --use_fast_math), and the
-//           quals written out as uint8 for the engine's host compare.
-// Outputs: gt_prob [N,10], max_gt [N] i32, margin [N], off_sum [N] in T.
+// Entry (the column tier and --no-exact, on host-built pileup columns):
+// counts [N,8] i32, quals [N,8] i32, ref [N] i32 -> gt_prob [N,10],
+// max_gt [N] i32, margin [N], off_sum [N] in T.
 //
 // The model and the finish are the device functions of genotype_model.cuh,
-// shared with K12 (pileup_genotype.cu), which takes K2's pileup entry off
-// the fused tier; the pileup entry stays here so both can be timed on one
-// card, and the column entry serves the column tier and --no-exact.
+// shared with K12 (pileup_genotype.cu), which computes the pileup and the
+// model of the fused tier in one launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -76,37 +69,6 @@ __global__ void __launch_bounds__(kBlock)
   finish(ll, i, gt_prob, max_gt, margin, off_sum);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kBlock)
-    genotype_pileup_kernel(const int* __restrict__ counts2,
-                           const float* __restrict__ qual_sum,
-                           const int* __restrict__ ref, long long n,
-                           const T* __restrict__ tab,
-                           const T* __restrict__ prior, double l, double t,
-                           T* __restrict__ gt_prob, int* __restrict__ max_gt,
-                           T* __restrict__ margin, T* __restrict__ off_sum,
-                           uint8_t* __restrict__ quals_u8) {
-  __shared__ T s_tab[kNQ * 4];
-  __shared__ T s_prior[5 * kNG];
-  load_tables(tab, prior, s_tab, s_prior);
-  __syncthreads();
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  T nc[8];
-  int q[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int cnt = counts2[i * 16 + c] + counts2[i * 16 + 8 + c];
-    const int qq = round_qual(qual_sum[i * 8 + c], cnt);
-    quals_u8[i * 8 + c] = (uint8_t)qq;
-    nc[c] = T(cnt);
-    q[c] = clamp_int(qq, 0, kNQ - 1);
-  }
-  T ll[kNG];
-  model(nc, q, clamp_int(ref[i], 0, 4), s_tab, s_prior, l, t, ll);
-  finish(ll, i, gt_prob, max_gt, margin, off_sum);
-}
-
 inline unsigned int blocks_for(long long n) {
   return (unsigned int)((n + kBlock - 1) / kBlock);
 }
@@ -121,20 +83,6 @@ int launch_column(const int* counts, const int* quals, const int* ref,
         <<<blocks_for(n), kBlock, 0, (cudaStream_t)stream>>>(
             counts, quals, ref, n, tab, prior, l, t, gt_prob, max_gt, margin,
             off_sum);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_pileup(const int* counts2, const float* qual_sum, const int* ref,
-                  long long n, const T* tab, const T* prior, double l,
-                  double t, T* gt_prob, int* max_gt, T* margin, T* off_sum,
-                  uint8_t* quals_u8, void* stream) {
-  if (n > 0) {
-    genotype_pileup_kernel<T>
-        <<<blocks_for(n), kBlock, 0, (cudaStream_t)stream>>>(
-            counts2, qual_sum, ref, n, tab, prior, l, t, gt_prob, max_gt,
-            margin, off_sum, quals_u8);
   }
   return (int)cudaGetLastError();
 }
@@ -159,28 +107,6 @@ int bsct_genotype_column_f64(const int* counts, const int* quals,
                              double* off_sum, void* stream) {
   return launch_column<double>(counts, quals, ref, n, tab, prior, l, t,
                                gt_prob, max_gt, margin, off_sum, stream);
-}
-
-int bsct_genotype_pileup_f32(const int* counts2, const float* qual_sum,
-                             const int* ref, long long n, const float* tab,
-                             const float* prior, double l, double t,
-                             float* gt_prob, int* max_gt, float* margin,
-                             float* off_sum, uint8_t* quals_u8,
-                             void* stream) {
-  return launch_pileup<float>(counts2, qual_sum, ref, n, tab, prior, l, t,
-                              gt_prob, max_gt, margin, off_sum, quals_u8,
-                              stream);
-}
-
-int bsct_genotype_pileup_f64(const int* counts2, const float* qual_sum,
-                             const int* ref, long long n, const double* tab,
-                             const double* prior, double l, double t,
-                             double* gt_prob, int* max_gt, double* margin,
-                             double* off_sum, uint8_t* quals_u8,
-                             void* stream) {
-  return launch_pileup<double>(counts2, qual_sum, ref, n, tab, prior, l, t,
-                               gt_prob, max_gt, margin, off_sum, quals_u8,
-                               stream);
 }
 
 }  // extern "C"

@@ -1,13 +1,14 @@
 // K12: the pileup of a read batch and the 10-genotype model with its
 // finish, per tile of positions, in one launch.
 //
-// Replaces, on the fused exact tier, K1 (pileup.cu) followed by K2's
-// pileup entry (genotype.cu): the XLA-fused `device_pileup` and
-// `_agg_quals_f32` of bs_call_tpu/ops/kernels/pileup_device.py and the
-// Pallas kernel `_kernel` of bs_call_tpu/ops/kernels/genotype_pallas.py
-// (:48), the fusion that genotype_pallas.py:19-22 plans ("folding the
-// pileup scatter and the aggregation into the same kernel"). Outputs are
-// bit for bit those of K1 -> K2: counts2 [n_pos,2,8] i32, qual_sum
+// Replaces, on the fused exact tier and in fused_pileup_call /
+// fused_emit_chunk, the XLA-fused pileup (:37) and `_agg_quals_f32` of
+// bs_call_tpu/ops/kernels/pileup_device.py and the Pallas kernel `_kernel`
+// of bs_call_tpu/ops/kernels/genotype_pallas.py (:48), the fusion that
+// genotype_pallas.py:19-22 plans ("folding the pileup scatter and the
+// aggregation into the same kernel"). Outputs are bit for bit those of
+// its plain version, `device_pileup_plain` then
+// `call_genotypes_pileup_plain`: counts2 [n_pos,2,8] i32, qual_sum
 // [n_pos,8] f32, mapq2_sum [n_pos] f32 (K3 and the host compare read
 // them), gt_prob [n_pos,10] T, max_gt i32, margin T, off_sum T and
 // quals_u8 [n_pos,8].
@@ -49,8 +50,8 @@
 //   halves the serial chain of f64 log/exp per thread and doubles the
 //   warps in flight against K2's one thread per position.
 //
-// Numerics are K1's and K2's: quality rounding floorf(0.5f + qs/(float)n)
-// with __fdiv_rn/__fadd_rn; qual_sum and mapq2_sum are cast to f32 once,
+// Numerics are the plain version's and K2's: quality rounding
+// floorf(0.5f + qs/(float)n) with __fdiv_rn/__fadd_rn; qual_sum and mapq2_sum are cast to f32 once,
 // round to nearest, from exact integer sums. mapq2_sum rounds once here
 // where an ordered f32 sum rounds at every add, so the two part above
 // 2^24; K3 flags those rows for the host. The safe log, the first-max

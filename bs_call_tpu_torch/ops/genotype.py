@@ -1,12 +1,14 @@
 """10-genotype bisulfite likelihood model: plain PyTorch version and the
-dispatching entry points.
+dispatching entry point of the column tier.
 
 Counterpart of `bs_call_tpu.ops.genotype` (genotype_model.c:23-246,
 call_genotypes.c:43-60). The plain functions below run on any device and
-are what the CPU path and the tests use; `call_genotypes` and
-`call_genotypes_pileup` send a CPU tensor to them and a CUDA tensor to the
-hand-written kernel K2 (`ops/kernels/genotype_cuda.py`), and raise on any
-other device. Nothing falls back from the kernel to the plain version.
+are what the CPU path and the tests use; `call_genotypes` sends a CPU
+tensor to them and a CUDA tensor to the hand-written kernel K2
+(`ops/kernels/genotype_cuda.py`), and raises on any other device. Nothing
+falls back from the kernel to the plain version.
+`call_genotypes_pileup_plain` is the model half of K12's plain version
+(`ops/kernels/pileup_device.py`).
 
 dtype follows the tables: float64 is the exact tier (the H100 computes
 f64 natively, so the TPU's double-float32 emulation is not ported),
@@ -18,10 +20,7 @@ from __future__ import annotations
 import torch
 
 from bs_call_tpu_torch.constants import LOG10
-from bs_call_tpu_torch.ops.kernels.genotype_cuda import (
-    genotype_column,
-    genotype_pileup,
-)
+from bs_call_tpu_torch.ops.kernels.genotype_cuda import genotype_column
 from bs_call_tpu_torch.ops.params import ModelTables
 
 NQ = 44  # MAX_QUAL + 1 quality rows in ModelTables.qual
@@ -136,8 +135,9 @@ def agg_quals_f32(counts, qual_sum):
 
 
 def call_genotypes_pileup_plain(counts2, qual_sum, ref, tables: ModelTables):
-    """Plain version of K2's pileup entry: counts2 [N,2,8] int32 summed
-    over orientation, quals by `agg_quals_f32`, then the model. Returns
+    """The model on pileup planes (the model half of K12's plain version):
+    counts2 [N,2,8] int32 summed over orientation, quals by
+    `agg_quals_f32`, then the model. Returns
     (gt_prob, max_gt, margin, off_sum, quals_u8 [N,8])."""
     counts = counts2.sum(dim=1)
     quals = agg_quals_f32(counts, qual_sum)
@@ -165,15 +165,4 @@ def call_genotypes(counts, quals, ref, tables: ModelTables):
         return call_genotypes_plain(counts, quals, ref, tables)
     if kind == "cuda":
         return genotype_column(counts, quals, ref, tables)
-    raise ValueError(f"no genotype kernel for device {tables.device}")
-
-
-def call_genotypes_pileup(counts2, qual_sum, ref, tables: ModelTables):
-    """Pileup entry: counts2 [N,2,8] int32, qual_sum [N,8] float32, ref
-    [N] -> (gt_prob, max_gt, margin, off_sum, quals_u8)."""
-    kind = _check_device(tables, counts2, qual_sum, ref)
-    if kind == "cpu":
-        return call_genotypes_pileup_plain(counts2, qual_sum, ref, tables)
-    if kind == "cuda":
-        return genotype_pileup(counts2, qual_sum, ref, tables)
     raise ValueError(f"no genotype kernel for device {tables.device}")

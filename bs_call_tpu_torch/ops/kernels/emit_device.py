@@ -3,7 +3,8 @@ the plain PyTorch version of K3 (`csrc/emit.cu`), and the packed layout
 both return.
 
 Counterpart of `bs_call_tpu/ops/kernels/emit_device.py` (`emit_fields_dd`
-:256, `_fisher_dd` :90, `_cg_codes` :495). From the model's outputs and
+:256, `_fisher_dd` :90, `_cg_codes` :495, `compact_emitted` :666,
+`fused_emit_chunk` :692). From the model's outputs and
 the pileup's accumulators (K12's on the fused tier) it computes what the host emit prep (`bsc_emit.cpp`, with
 the Fisher test of `bsc_stats.cpp`) computes per row: GQ phred, QD, FS,
 the q20/qd2/fs60/mq40 filter bits, mac1, the GL values, the CG-status
@@ -287,18 +288,20 @@ def pack_fields(fields: dict):
     return torch.cat(parts)
 
 
-def unpack_fields(buf: np.ndarray, n: int, rows: int | None = None):
-    """Numpy views of a packed buffer of n rows (K3's or `pack_fields`'),
-    each sliced to its first `rows` rows."""
-    if buf.nbytes != n * ROW_BYTES:
-        raise ValueError(f"packed buffer of {buf.nbytes} bytes, {n} rows")
+def unpack_fields(buf, n: int, rows: int | None = None):
+    """Views of a packed buffer of n rows (K3's or `pack_fields`'), numpy
+    views of a numpy buffer and tensor views of a tensor, each sliced to
+    its first `rows` rows."""
+    is_tensor = isinstance(buf, torch.Tensor)
+    nbytes = buf.numel() if is_tensor else buf.nbytes
+    if buf.ndim != 1 or nbytes != n * ROW_BYTES:
+        raise ValueError(f"packed buffer of {nbytes} bytes, {n} rows")
     rows = n if rows is None else rows
     out = {}
     o = 0
     for name, dt, k in LAYOUT:
-        nd = _NP_DTYPE[dt]
-        size = n * k * nd.itemsize
-        a = buf[o:o + size].view(nd)
+        size = n * k * dt.itemsize
+        a = buf[o:o + size].view(dt if is_tensor else _NP_DTYPE[dt])
         out[name] = (a.reshape(n, k) if k > 1 else a)[:rows]
         o += size
     return out
@@ -324,3 +327,51 @@ def emit_fields(gt_prob, max_gt, margin, off, counts2, mapq2_sum, ref,
             quirk,
         )
     raise ValueError(f"no emit kernel for device {gt_prob.device}")
+
+
+def compact_emitted(packed, n: int, cap: int):
+    """The covered rows of a packed buffer of n rows (K3's or
+    `pack_fields`'), in position order, packed again into cap rows: what
+    the host emits without --all-positions. Returns (n_emit int32 [],
+    pos int32 [cap], packed uint8 [cap * ROW_BYTES]), rows past n_emit
+    zero (`covered` false). n_emit > cap means the chunk overflowed: the
+    rows past cap are dropped, never written, and the caller reruns the
+    chunk. "Covered" is the buffer's own `covered` field. Each field's
+    segment is gathered on its own (the buffer is struct of arrays): a
+    cumsum and one scatter a field, in order on the tensor's device with
+    no host round trip."""
+    views = unpack_fields(packed, n)
+    covered = views["covered"]
+    dev = packed.device
+    seq = torch.cumsum(covered, 0, dtype=torch.int32) - 1
+    slot = torch.where(covered & (seq < cap), seq, cap).long()  # cap: dump
+    pos = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+    pos[slot] = torch.arange(n, dtype=torch.int32, device=dev)
+    parts = []
+    for name, _dt, _k in LAYOUT:
+        v = views[name]
+        buf = v.new_zeros((cap + 1, *v.shape[1:]))
+        buf[slot] = v
+        parts.append(buf[:cap].reshape(-1).view(torch.uint8))
+    return covered.sum(dtype=torch.int32), pos[:cap], torch.cat(parts)
+
+
+def fused_emit_chunk(rd, starts, ori, strand, mapq, ref, n_pos: int,
+                     min_qual: int, tables, emit: EmitTables, cap: int,
+                     quirk: bool = True):
+    """The whole fused tier of a chunk: any read batch ->
+    `pileup_device.prepare_batch` -> K12 (pileup and f64 model) -> K3
+    (emit fields) -> `compact_emitted`, in order on the current stream
+    with no host round trip (the plain versions for a CPU batch). tables
+    are the f64 ModelTables: the JAX function's df32 model is real f64
+    here. Returns `compact_emitted`'s (n_emit, pos, packed).
+
+    The JAX function's `het_cap` has no counterpart: it sized the TPU
+    program's compacted buffer of het rows for the Fisher walks, which
+    K3's per-tile queue of het rows replaces (no het row is ever dropped
+    or flagged for lack of room)."""
+    from bs_call_tpu_torch.ops.kernels.pileup_device import fused_ll_emit
+
+    *_out, packed = fused_ll_emit(rd, starts, ori, strand, mapq, ref, n_pos,
+                                  min_qual, tables, emit, quirk)
+    return compact_emitted(packed, n_pos, cap)

@@ -1,14 +1,16 @@
-"""K2 launchers: the genotype likelihood kernel of `csrc/genotype.cu`.
+"""K2 launcher: the genotype likelihood kernel of `csrc/genotype.cu` on
+pileup columns (the column tier and `--no-exact`), and the checks every
+launcher of the port shares.
 
 Replaces `bs_call_tpu/ops/kernels/genotype_pallas.py` (`_kernel`,
 `genotype_ll_pallas`, `call_genotypes_pallas`); the source note in
 `csrc/genotype.cu` says what bounds it on the card and how. The plain
-PyTorch versions of both entries are `call_genotypes_plain` and
-`call_genotypes_pileup_plain` in `bs_call_tpu_torch.ops.genotype`, whose
-`call_genotypes` / `call_genotypes_pileup` dispatch a CPU tensor to them
-and a CUDA tensor here.
+PyTorch version is `call_genotypes_plain` in `bs_call_tpu_torch.ops.
+genotype`, whose `call_genotypes` dispatches a CPU tensor to it and a
+CUDA tensor here. On the fused tier K12 (`pileup_genotype_cuda`) runs the
+same model.
 
-Each launcher takes CUDA tensors only, checks device, dtype, shape and
+The launcher takes CUDA tensors only, checks device, dtype, shape and
 contiguity, allocates its outputs with `torch.empty`, launches on the
 current stream without synchronising, raises if the launch reports a CUDA
 error, and counts its launches in its `launches` attribute.
@@ -32,14 +34,11 @@ def _kernels():
     global _lib
     if _lib is None:
         lib = _build.load()
-        head = [_P, _P, _P, ctypes.c_longlong, _P, _P, ctypes.c_double,
-                ctypes.c_double, _P, _P, _P, _P]
         for sfx in _SUFFIX.values():
             fn = getattr(lib, f"bsct_genotype_column_{sfx}")
-            fn.argtypes = [*head, _P]
-            fn.restype = ctypes.c_int
-            fn = getattr(lib, f"bsct_genotype_pileup_{sfx}")
-            fn.argtypes = [*head, _P, _P]
+            fn.argtypes = [_P, _P, _P, ctypes.c_longlong, _P, _P,
+                           ctypes.c_double, ctypes.c_double, _P, _P, _P, _P,
+                           _P]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -109,33 +108,3 @@ def genotype_column(counts, quals, ref, tables: ModelTables):
 
 
 genotype_column.launches = 0
-
-
-def genotype_pileup(counts2, qual_sum, ref, tables: ModelTables):
-    """K2 pileup entry: counts2 [N,2,8] i32, qual_sum [N,8] f32, ref [N]
-    i32 -> (gt_prob, max_gt, margin, off_sum, quals_u8 [N,8] u8)."""
-    dev = tables.device
-    _check_tables(tables)
-    n = counts2.shape[0] if counts2.dim() else 0
-    require(counts2, "counts2", torch.int32, (n, 2, 8), dev)
-    require(qual_sum, "qual_sum", torch.float32, (n, 8), dev)
-    require(ref, "ref", torch.int32, (n,), dev)
-    out = _outputs(n, tables)
-    quals_u8 = torch.empty((n, 8), dtype=torch.uint8, device=dev)
-    if n == 0:
-        return (*out, quals_u8)
-    fn = getattr(_kernels(), f"bsct_genotype_pileup_{_SUFFIX[tables.dtype]}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            counts2.data_ptr(), qual_sum.data_ptr(), ref.data_ptr(), n,
-            tables.qual.data_ptr(), tables.prior.data_ptr(), tables.l,
-            tables.t, *(o.data_ptr() for o in out), quals_u8.data_ptr(),
-            stream,
-        )
-    check_rc(rc, "genotype_pileup")
-    genotype_pileup.launches += 1
-    return (*out, quals_u8)
-
-
-genotype_pileup.launches = 0

@@ -1,15 +1,21 @@
-"""K1, the pileup scatter of `csrc/pileup.cu`, its plain PyTorch version,
-and the fused exact tier: `fused_ll_f64` (K12, the pileup and the f64
-model per position tile) and `fused_ll_emit` (K12 -> K3, the emit tier).
+"""The fused exact tier: the pileup of a read batch and the genotype
+model on it, K12 (`csrc/pileup_genotype.cu`) on the card and its plain
+PyTorch version (`device_pileup_plain` then `call_genotypes_pileup_plain`)
+on the CPU, with the emit fields (K3) after it.
 
-Counterpart of `bs_call_tpu/ops/kernels/pileup_device.py`
-(`device_pileup`, `_agg_quals_f32`, `fused_ll_dd`, `pad_read_batch`) and
-of `emit_device.fused_ll_emit`. The normalised read batch of a block
-crosses to the device once, its rows sorted by start; the pileup, the
-quality rounding, the f64 genotype model and (with the emit tier) the
-emit fields run there, and only the call planes, the uint8 quals and the
-packed fields come back. K1 and K2's pileup entry, which K12 replaces on
-the fused tier, stay beside it so that both can be timed on one card.
+Counterpart of `bs_call_tpu/ops/kernels/pileup_device.py` (the pileup
+:37, `_agg_quals_f32`, `fused_pileup_call`, `fused_ll_dd`,
+`pad_read_batch`) and of `emit_device.fused_ll_emit`. The normalised read
+batch of a block crosses to the device once; the pileup, the quality
+rounding, the genotype model and (with the emit tier) the emit fields run
+there, and only the call planes, the uint8 quals and the packed fields
+come back.
+
+K12 takes its rows sorted by start, with a table of the rows that meet
+each tile of TILE positions. The engine's batches come so from the host
+(`pad_read_batch`, `tile_rows`); `fused_pileup_call` takes any batch, as
+the JAX function does, and `prepare_batch` sorts and pads it on its own
+device.
 
 Read batch layout (as in the JAX package):
     rd      [R, L] uint8   (base & 3 | qual << 2), 0-padded
@@ -17,11 +23,11 @@ Read batch layout (as in the JAX package):
     ori     [R]    int32   orientation row (0/1)
     strand  [R]    int32   bisulfite strand code (0/1/2)
     mapq    [R]    int32
+Padding rows are all-zero bytes or lie outside [0, n_pos) (the JAX
+package's padding rows carry starts < 0): they add to no position.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -29,37 +35,22 @@ import torch
 from bs_call_tpu_torch.constants import BASE_TAB_ST, FLT_QUAL
 from bs_call_tpu_torch.ops.emit_tables import EmitTables
 from bs_call_tpu_torch.ops.genotype import call_genotypes_pileup_plain
-from bs_call_tpu_torch.ops.kernels import _build
 from bs_call_tpu_torch.ops.kernels.emit_device import emit_fields
-from bs_call_tpu_torch.ops.kernels.genotype_cuda import check_rc, require
 from bs_call_tpu_torch.ops.kernels.pileup_genotype_cuda import (
+    MAX_L,
+    MIN_L,
     TILE,
     pileup_genotype,
 )
 from bs_call_tpu_torch.ops.params import ModelTables
 
-_P = ctypes.c_void_p
-_lib = None
-
-
-def _kernels():
-    global _lib
-    if _lib is None:
-        lib = _build.load()
-        i = ctypes.c_int
-        lib.bsct_pileup_scatter.argtypes = [
-            _P, _P, _P, _P, _P, i, i, i, i, _P, _P, _P, _P,
-        ]
-        lib.bsct_pileup_scatter.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
 
 def device_pileup_plain(rd, starts, ori, strand, mapq, n_pos: int,
                         min_qual: int):
-    """Plain version of K1: the same segment sums in integers, with
-    invalid bytes sent to a dump segment past the end (as the JAX
-    version does). Returns (counts2 [P,2,8] i32, qual_sum [P,8] f32,
+    """Plain version of K12's pileup (`bs_call_tpu/ops/kernels/
+    pileup_device.py:37`): the segment sums in integers, with invalid
+    bytes sent to a dump segment past the end (as the JAX version does).
+    Any row order. Returns (counts2 [P,2,8] i32, qual_sum [P,8] f32,
     mapq2_sum [P] f32)."""
     dev = rd.device
     R, L = rd.shape
@@ -105,62 +96,91 @@ def device_pileup_plain(rd, starts, ori, strand, mapq, n_pos: int,
     )
 
 
-def pileup_scatter(rd, starts, ori, strand, mapq, n_pos: int,
-                   min_qual: int):
-    """K1 launcher (CUDA tensors only): same contract as
-    `device_pileup_plain`. Counts its launches in `launches`."""
-    dev = rd.device
+def prepare_batch(rd, starts, ori, strand, mapq, n_pos: int):
+    """K12's batch from any read batch, on the batch's device with no host
+    round trip: the rows that meet [0, n_pos) sorted by start (stable)
+    ahead of the rest, the rows zero-padded to L' = the width rounded up to
+    a multiple of 16, at least MIN_L, in a fresh contiguous tensor, and the
+    tile table of `tile_rows` over the rows that meet [0, n_pos) at width
+    L'. Zero bytes are never live, so the padding adds to no position; the
+    rows outside [0, n_pos) land in no tile. Returns ((rd [R, L'] u8,
+    starts, ori, strand, mapq [R] i32), tiles [ceil(n_pos / TILE), 2]
+    i32)."""
     if rd.dim() != 2:
         raise ValueError(f"rd: expected [R, L], got {tuple(rd.shape)}")
     R, L = rd.shape
-    require(rd, "rd", torch.uint8, (R, L), dev)
-    for name, a in (("starts", starts), ("ori", ori), ("strand", strand),
-                    ("mapq", mapq)):
-        require(a, name, torch.int32, (R,), dev)
-    if not 0 < n_pos < (1 << 27):
+    if L > MAX_L:
+        raise ValueError(f"rd: rows of {L} bytes; K12 takes up to {MAX_L}")
+    if n_pos <= 0:
         raise ValueError(f"n_pos out of range: {n_pos}")
-    counts2 = torch.zeros((n_pos, 2, 8), dtype=torch.int32, device=dev)
-    qual_sum = torch.zeros((n_pos, 8), dtype=torch.int32, device=dev)
-    mapq2_sum = torch.zeros(n_pos, dtype=torch.int64, device=dev)
-    if R and L:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = _kernels().bsct_pileup_scatter(
-                rd.data_ptr(), starts.data_ptr(), ori.data_ptr(),
-                strand.data_ptr(), mapq.data_ptr(), R, L, n_pos, min_qual,
-                counts2.data_ptr(), qual_sum.data_ptr(),
-                mapq2_sum.data_ptr(), stream,
-            )
-        check_rc(rc, "pileup_scatter")
-        pileup_scatter.launches += 1
-    return counts2, qual_sum.to(torch.float32), mapq2_sum.to(torch.float32)
+    l_cap = max(MIN_L, -(-L // 16) * 16)
+    s = starts.long()
+    meets = (s <= n_pos - 1) & (s + L - 1 >= 0)
+    # past every tile's last row: n_tiles * TILE < n_pos + TILE
+    key, order = torch.sort(torch.where(meets, s, n_pos + TILE), stable=True)
+    rows = rd.index_select(0, order)
+    if l_cap != L:
+        rows = torch.nn.functional.pad(rows, (0, l_cap - L))
+    cols = [a.index_select(0, order).to(torch.int32)
+            for a in (starts, ori, strand, mapq)]
+    t0 = torch.arange(0, n_pos, TILE, dtype=torch.int64, device=rd.device)
+    tiles = torch.stack([
+        torch.searchsorted(key, t0 - l_cap, right=True),
+        torch.searchsorted(key, t0 + TILE),
+    ], dim=1).to(torch.int32)
+    return (rows, *cols), tiles
 
 
-pileup_scatter.launches = 0
+def fused_pileup_call(rd, starts, ori, strand, mapq, ref, n_pos: int,
+                      min_qual: int, tables: ModelTables):
+    """Read batch -> pileup -> f32 quality rounding -> genotype model in
+    `tables.dtype` (f32 or f64), in order on the current stream with no
+    host round trip: `prepare_batch`, then K12 in one launch for a CUDA
+    batch, `device_pileup_plain` then `call_genotypes_pileup_plain` for a
+    CPU batch. Any batch: rows in any order, of any width up to MAX_L.
+    ref [n_pos] int32. Returns (gt_prob [P,10], max_gt [P] i32, margin
+    [P], off_sum [P], counts2 [P,2,8] i32, qual_sum [P,8] f32, mapq2_sum
+    [P] f32), the JAX function's outputs. mapq2_sum is summed exactly and
+    cast once; the JAX function's ordered f32 sum equals it below 2^24."""
+    c2, qs, m2, gp, mx, mg, off, _q = _pileup_model(
+        rd, starts, ori, strand, mapq, ref, n_pos, min_qual, tables, None
+    )
+    return gp, mx, mg, off, c2, qs, m2
 
 
-def device_pileup(rd, starts, ori, strand, mapq, n_pos: int, min_qual: int):
-    """Pileup of a read batch for block-relative positions [0, n_pos):
-    a CPU batch goes to the plain version, a CUDA batch to K1."""
+def _pileup_model(rd, starts, ori, strand, mapq, ref, n_pos, min_qual,
+                  tables, tiles):
+    """(counts2, qual_sum, mapq2_sum, gt_prob, max_gt, margin, off_sum,
+    quals_u8): K12 for a CUDA batch, the plain pileup and model for a CPU
+    batch. Without `tiles` the batch goes through `prepare_batch` first;
+    with them it is K12's batch already (rows sorted by start, the table
+    of `tile_rows`)."""
     kind = rd.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no fused-tier kernel for device {rd.device}")
+    if tiles is None:
+        (rd, starts, ori, strand, mapq), tiles = prepare_batch(
+            rd, starts, ori, strand, mapq, n_pos
+        )
     if kind == "cpu":
-        return device_pileup_plain(
+        counts2, qual_sum, mapq2_sum = device_pileup_plain(
             rd, starts, ori, strand, mapq, n_pos, min_qual
         )
-    if kind == "cuda":
-        return pileup_scatter(rd, starts, ori, strand, mapq, n_pos, min_qual)
-    raise ValueError(f"no pileup kernel for device {rd.device}")
+        return (counts2, qual_sum, mapq2_sum,
+                *call_genotypes_pileup_plain(counts2, qual_sum, ref, tables))
+    return pileup_genotype(rd, starts, ori, strand, mapq, tiles, ref, n_pos,
+                           min_qual, tables)
 
 
 def fused_ll_f64(rd, starts, ori, strand, mapq, ref, n_pos: int,
                  min_qual: int, tables: ModelTables, tiles=None):
     """Fused exact tier: read batch -> pileup -> f32 quality rounding +
     f64 genotype model + finish, in order on the current stream with no
-    host round-trip: K12 in one launch for a CUDA batch (rows sorted by
-    start, `tiles` from `tile_rows`), `device_pileup_plain` then
-    `call_genotypes_pileup_plain` for a CPU batch. ref [n_pos] int32.
-    Returns (gt_prob [P,10] f64, max_gt [P] i32, margin [P] f64,
-    off_sum [P] f64, quals_u8 [P,8])."""
+    host round-trip: K12 in one launch for a CUDA batch, the plain
+    versions for a CPU batch. With `tiles` (from `tile_rows`) the batch is
+    K12's already (`pad_read_batch`); without, `prepare_batch` makes it.
+    ref [n_pos] int32. Returns (gt_prob [P,10] f64, max_gt [P] i32, margin
+    [P] f64, off_sum [P] f64, quals_u8 [P,8])."""
     return _fused(rd, starts, ori, strand, mapq, ref, n_pos, min_qual,
                   tables, tiles)[2]
 
@@ -172,23 +192,10 @@ def _fused(rd, starts, ori, strand, mapq, ref, n_pos, min_qual, tables,
         raise ValueError(
             f"the fused tier needs float64 tables: {tables.dtype}"
         )
-    kind = rd.device.type
-    if kind == "cpu":
-        counts2, qual_sum, mapq2_sum = device_pileup_plain(
-            rd, starts, ori, strand, mapq, n_pos, min_qual
-        )
-        return counts2, mapq2_sum, call_genotypes_pileup_plain(
-            counts2, qual_sum, ref, tables
-        )
-    if kind == "cuda":
-        if tiles is None:
-            raise ValueError("K12 needs the tile table of tile_rows")
-        counts2, _qual_sum, mapq2_sum, *out = pileup_genotype(
-            rd, starts, ori, strand, mapq, tiles, ref, n_pos, min_qual,
-            tables,
-        )
-        return counts2, mapq2_sum, tuple(out)
-    raise ValueError(f"no fused-tier kernel for device {rd.device}")
+    counts2, _qual_sum, mapq2_sum, *out = _pileup_model(
+        rd, starts, ori, strand, mapq, ref, n_pos, min_qual, tables, tiles
+    )
+    return counts2, mapq2_sum, tuple(out)
 
 
 def fused_ll_emit(rd, starts, ori, strand, mapq, ref, n_pos: int,

@@ -1,14 +1,14 @@
 """K12 launcher: the pileup and the genotype model per position tile, the
 kernel of `csrc/pileup_genotype.cu`.
 
-K12 computes what K1 (`pileup_device.pileup_scatter`) followed by K2's
-pileup entry (`genotype_cuda.genotype_pileup`) compute, in one launch:
-each CTA accumulates one tile of TILE positions from the read rows that
-meet it in shared memory, writes the tile's pileup planes once, and runs
-the 10-genotype model and finish on them from shared memory. Its plain
-PyTorch version is `pileup_device.device_pileup_plain` followed by
-`genotype.call_genotypes_pileup_plain`; `pileup_device.fused_ll_f64`
-sends a CPU batch there and a CUDA batch here.
+K12 computes the pileup of a read batch and the genotype model on it in
+one launch: each CTA accumulates one tile of TILE positions from the
+read rows that meet it in shared memory, writes the tile's pileup planes
+once, and runs the 10-genotype model and finish on them from shared
+memory. Its plain PyTorch version is `pileup_device.device_pileup_plain`
+followed by `genotype.call_genotypes_pileup_plain`; `pileup_device`'s
+`fused_pileup_call`, `fused_ll_f64` and `fused_ll_emit` send a CPU batch
+there and a CUDA batch here.
 
 The launcher takes CUDA tensors only, checks them, allocates its outputs
 with `torch.empty` (the kernel writes every position), launches on the
@@ -27,6 +27,7 @@ from bs_call_tpu_torch.ops.kernels.genotype_cuda import check_rc, require
 from bs_call_tpu_torch.ops.params import ModelTables
 
 TILE = 128  # positions per CTA; csrc/pileup_genotype.cu kTile
+MIN_L, MAX_L = 64, 2048  # row widths K12 takes, multiples of 16
 _P = ctypes.c_void_p
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _lib = None
@@ -77,10 +78,10 @@ def pileup_genotype(rd, starts, ori, strand, mapq, tiles, ref, n_pos: int,
     require(ref, "ref", torch.int32, (n_pos,), dev)
     require(tables.qual, "tables.qual", tables.dtype, (44, 4), dev)
     require(tables.prior, "tables.prior", tables.dtype, (5, 10), dev)
-    if not 64 <= L <= 2048 or L % 16 or rd.data_ptr() % 16:
+    if not MIN_L <= L <= MAX_L or L % 16 or rd.data_ptr() % 16:
         raise ValueError(
-            f"rd: rows of {L} bytes; K12 takes 64..2048, a multiple of 16, "
-            "16-byte aligned"
+            f"rd: rows of {L} bytes; K12 takes {MIN_L}..{MAX_L}, a multiple "
+            "of 16, 16-byte aligned"
         )
     i32, dt = torch.int32, tables.dtype
     out = (

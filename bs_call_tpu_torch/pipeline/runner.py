@@ -446,6 +446,7 @@ def process_contig_blocks_native(
 
     tracer = tracer or NULL_TRACER
     contig_seq = None
+    whole_contigs = _whole_contig_regions(table)
     # settled-prefix partial staging: only with the vector emitter (the
     # hold_back streaming contract) and whole-contig processing. -C
     # regions that each span a full contig (the shard-worker pattern)
@@ -455,7 +456,7 @@ def process_contig_blocks_native(
     # buffers (hundreds of MB of sys time per shard).
     if (
         getattr(emitter, "vector", None) is not None
-        and (not table.regions or _whole_contig_regions(table))
+        and (not table.regions or whole_contigs)
         and hasattr(npipe, "set_partial")
     ):
         npipe.set_partial(2 * max(cfg.batch_positions, 1024))
@@ -568,12 +569,15 @@ def process_contig_blocks_native(
             # j even when the whole contig is one semantic block (dense
             # WGBS coverage rarely breaks blocks). Chunks overlap by 4
             # positions: 2 withheld lookahead rows + the 2-before context
-            # the next chunk re-supplies (see emit_block hold_back).
+            # the next chunk re-supplies (see emit_block hold_back). -C
+            # regions that each span a whole contig (a shard worker's)
+            # stream as a run without regions does: unstreamed, a block
+            # wider than a chunk leaves the fused tier for the column tier.
             CHUNK = max(cfg.batch_positions, 1024)
             stream = (
                 getattr(emitter, "vector", None) is not None
                 and sz > CHUNK + 16
-                and not getattr(ctg, "regions", None)
+                and (not getattr(ctg, "regions", None) or whole_contigs)
             )
             agg = blk.get("agg")
             # a partial staged range is a chunk of a still-open block:

@@ -8,45 +8,59 @@ and g++. Phases, each of which raises on failure (exit code 1):
 
 1. print the card (`nvidia-smi` name and power limit), torch and CUDA;
 2. build the CUDA kernels from `bs_call_tpu_torch/csrc` (timed);
-3. K2, the genotype kernel, against its plain PyTorch version on the
-   card at the fused tier's shape (32,832 positions), both entries, f64
-   and f32, with kernel and plain times from CUDA events;
-4. K1, the pileup scatter, against its plain version on the card at
-   4,096 reads x 256 bases over 32,832 positions;
-5. K3, the emit-fields kernel, against its plain version on the card at
-   32,832 positions, on two batches through K2's pileup entry: (a)
-   phase 3's inputs plus a mapq2 sum, a few rows of it at or above 2^24
-   (which both must flag), and (b) a WGBS-like batch at depth 18
+3. K2's column entry (the column tier, `--no-exact`) against its plain
+   PyTorch version on the card at the fused tier's shape (32,832
+   positions), f64 and f32, with kernel and plain times;
+4. K3, the emit-fields kernel, against its plain version on the card at
+   32,832 positions, on two batches through the plain model on the card:
+   (a) phase 3's inputs plus a mapq2 sum, a few rows of it at or above
+   2^24 (which both must flag), and (b) a WGBS-like batch at depth 18
    (`wgbs_inputs`); then on ragged sizes (1, 2, 127, 129 and 4,097
    rows, and 129 rows one element into their storage) and on a batch
    whose rows on the 128-row tile seams are het. Every field must be equal on
    the rows neither flags, the codes no libm reaches on every row; the
    het share, both risk counts and the number of rows whose risk bit
    differs are printed, with kernel and plain times of both batches;
-6. K12, the pileup and the genotype model per position tile, against its
+5. K12, the pileup and the genotype model per position tile, against its
    plain version (`device_pileup_plain` then
-   `call_genotypes_pileup_plain`) on the card, in f64 and f32, at phase
-   4's batch and on a hot position (5,000 reads of mapq 59 over one
-   position, which takes `mapq2_sum` past 2^24): integers exact, f64
-   within K2's tolerances. K12, K1 and K2's pileup entry are timed on the
-   same batch in this run;
-7. end to end on a 600k-read WGBS fixture (4 contigs x 1.25 Mbp, 150k
+   `call_genotypes_pileup_plain`) on the card, in f64 and f32, at 4,096
+   reads x 256 bases over 32,832 positions and on a hot position (5,000
+   reads of mapq 59 over one position, which takes `mapq2_sum` past
+   2^24): integers exact, f64 within K2's tolerances;
+6. `fused_pileup_call` (any read batch -> K12 in f32 or f64) against its
+   plain version on the card, on the fused tier's chunk (4,096 x 256)
+   and on a batch that needs the wrapper's preparation (100-byte rows out
+   of order, padding rows with starts < 0, rows past the chunk): one K12
+   launch a call, integers exact, floats as phase 5; device and eager
+   times, K12's own and the preparation's;
+7. `fused_emit_chunk` (K12 -> K3 -> compaction) against its plain
+   version on the card on the read-batch counterparts of K3's batches
+   (a) and (b), and with a cap below n_emit (the overflow must be
+   reported): n_emit and positions equal, every field as phase 4; its
+   device time and the share of it spent in compaction;
+8. end to end on a 600k-read WGBS fixture (4 contigs x 1.25 Mbp, 150k
    reads each, seed 0, dbSNP every 503 bp): `bs_call_tpu.cli --device
    cpu` (the native host engine, the reference) in a subprocess, then
-   `bs_call_tpu_torch.cli --device cuda` twice in this process, with the
-   emit tier on (the default: K12 -> K3) and with `BS_CALL_EMIT_TIER=0`
-   (K12, host emit prep). VCF and report bytes of both must equal the
-   reference's. The launch counts, reset just before each port run, must
-   show that each run launched K12 once per chunk the fused tier
-   carried, and K1 and K2's pileup entry never; the tier-on run K3 once
-   per K12 launch, the tier-off run no K3. The tier-on run's risk-flagged
-   share of the covered positions it carried (`tier_emit_risk` /
-   `tier_emit`) must stay at or below 2%. The three walls are printed
-   beside the card.
+   `bs_call_tpu_torch.cli --device cuda` in this process with the emit
+   tier on (the default: K12 -> K3), with `BS_CALL_EMIT_TIER=0` (K12,
+   host emit prep), and with `--shards 2` (BS_CALL_FORCE_SHARDS=1: two
+   worker processes, each on the card). VCF and report bytes of all
+   three must equal the reference's. The launch counts, reset just before
+   each port run, must show that the single-process runs launched K12
+   once per chunk the fused tier carried, the tier-on run K3 once per K12
+   launch, the tier-off run no K3, and that the sharded run's workers
+   (their counts come back with their stats) launched K12 and K3 once
+   per chunk while the parent launched nothing. The tier-on run's
+   risk-flagged share of the covered positions it carried
+   (`tier_emit_risk` / `tier_emit`) must stay at or below 2%. The walls
+   are printed beside the card.
 
 The line before the last is a JSON object with one entry per kernel
 (`bound_ms` from this run's inputs: bytes over 3.35 TB/s, FP64
-operations over 34 TFLOP/s, the larger); the last is `{"ok": true,
+operations over 34 TFLOP/s, the larger; `launches` from the main path's
+run of each: the 600k tier-on run for K12 f64 and K3, phase 6's drive
+for K12 f32, the 600k runs for K2's column entry, which is off the main
+path); the last is `{"ok": true,
 "device": {...}}`. Imports nothing of JAX and nothing of `bs_call_tpu`,
 which it runs only as the reference subprocess.
 """
@@ -126,6 +140,13 @@ def model_flops(np, counts):
 # bytes of one position's pileup planes and model outputs (f64)
 PILEUP_BYTES = 64 + 32 + 4          # counts2 i32, qual_sum f32, mapq2 f32
 MODEL_OUT_BYTES = 80 + 4 + 8 + 8 + 8  # gt_prob, max_gt, margin, off, quals
+
+
+def close_ratio(got, want, rtol, atol) -> float:
+    """assert_close's own measure: the largest |got - want| / (atol +
+    rtol |want|), at most 1 where the check passes."""
+    d = (got - want).abs().double()
+    return (d / (atol + rtol * want.abs().double())).max().item()
 
 
 def device_ms(fn, torch, reps=20) -> float:
@@ -224,13 +245,14 @@ def wgbs_inputs(np, n, seed, depth=18):
 
 
 def k3_batch(torch, np, dev, kind, n=N_POS):
-    """K3's inputs on the card: K2's f64 pileup-entry outputs on a batch
-    plus its counts2, mapq2_sum and ref, and the emit tables. kind "a":
+    """K3's inputs on the card: the plain f64 model's outputs on a batch
+    of pileup planes (`call_genotypes_pileup_plain`, on the card) plus
+    its counts2, mapq2_sum and ref, and the emit tables. kind "a":
     `genotype_inputs` (a het-rich random mix) with a mapq2 sum, 8 rows of
     it at or above 2^24; kind "b": `wgbs_inputs` at depth 18. Returns
     (args of `emit_fields_cuda`, the rows past 2^24)."""
     from bs_call_tpu_torch.ops.emit_tables import emit_tables
-    from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
+    from bs_call_tpu_torch.ops.genotype import call_genotypes_pileup_plain
     from bs_call_tpu_torch.ops.params import ModelParams, model_tables
 
     if kind == "a":
@@ -246,67 +268,63 @@ def k3_batch(torch, np, dev, kind, n=N_POS):
     c2, qs, m2, r = (torch.from_numpy(a).to(dev)
                      for a in (counts2, qual_sum, mapq2, ref))
     tables = model_tables(ModelParams(), torch.float64, dev)
-    k2 = K2.genotype_pileup(c2, qs, r, tables)[:4]
-    return (*k2, c2, m2, r, emit_tables(dev)), deep
+    model = call_genotypes_pileup_plain(c2, qs, r, tables)[:4]
+    return (*model, c2, m2, r, emit_tables(dev)), deep
 
 
 def check_k2(torch, np, dev):
+    """K2's column entry, f64 and f32, against its plain version."""
     from bs_call_tpu_torch.ops import genotype as G
     from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
     from bs_call_tpu_torch.ops.params import ModelParams, model_tables
 
-    counts2, qual_sum, counts, quals, ref = (
+    _c2, _qs, counts, quals, ref = (
         torch.from_numpy(a).to(dev) for a in genotype_inputs(np, N_POS, 0)
     )
+    args = (counts, quals, ref)
     results = {}
     for dtype, tol, tie in ((torch.float64, 1e-12, 1e-9),
                             (torch.float32, 2e-5, 1e-3)):
         tables = model_tables(ModelParams(), dtype, dev)
-        for entry, kern, plain, args in (
-            ("column", K2.genotype_column, G.call_genotypes_plain,
-             (counts, quals, ref)),
-            ("pileup", K2.genotype_pileup, G.call_genotypes_pileup_plain,
-             (counts2, qual_sum, ref)),
-        ):
-            got = kern(*args, tables)
-            want = plain(*args, tables)
-            torch.cuda.synchronize()
-            gp, mx, mg, off = got[:4]
-            w_gp, w_mx, w_mg, w_off = want[:4]
-            clear = w_mg > tie
-            if not torch.equal(mx[clear], w_mx[clear]):
-                raise AssertionError(f"K2 {entry} {dtype}: max_gt differs")
-            torch.testing.assert_close(gp, w_gp, rtol=tol, atol=tol)
-            torch.testing.assert_close(
-                off, w_off, rtol=tol if dtype == torch.float64 else 1e-4,
-                atol=1e-30,
-            )
-            # margin is a difference of two log-likelihoods of up to
-            # ~10^3: in f32 its rounding is one ulp of those, 6e-5
-            torch.testing.assert_close(
-                mg, w_mg, rtol=tol, atol=tol if dtype == torch.float64 else 2e-4
-            )
-            if entry == "pileup" and not torch.equal(got[4], want[4]):
-                raise AssertionError(f"K2 pileup {dtype}: quals differ")
-            err = (gp - w_gp).abs().max().item()
-            ms = device_ms(lambda: kern(*args, tables), torch)
-            eager_ms = time_ms(lambda: kern(*args, tables), torch)
-            plain_ms = time_ms(lambda: plain(*args, tables), torch)
-            name = f"genotype_{entry}_{'f64' if dtype == torch.float64 else 'f32'}"
-            isz = 8 if dtype == torch.float64 else 4
-            n_in = (PILEUP_BYTES if entry == "pileup" else 64 + 4) * N_POS
-            n_out = (10 * isz + 4 + 2 * isz
-                     + (8 if entry == "pileup" else 0)) * N_POS
-            flops = (model_flops(np, args[0].view(N_POS, -1, 8).sum(1)
-                                 .cpu().numpy())
-                     if dtype == torch.float64 else 0.0)
-            b_ms, b_by = bound(n_in + n_out, flops)
-            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": b_ms, "bound_by": b_by,
-                             "library_ms": None, "eager_ms": eager_ms}
-            log(f"K2 {name}: N={N_POS} max|d gt_prob|={err:.3e} "
-                f"(tol {tol:g}) kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), "
-                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        got = K2.genotype_column(*args, tables)
+        want = G.call_genotypes_plain(*args, tables)
+        torch.cuda.synchronize()
+        gp, mx, mg, off = got
+        w_gp, w_mx, w_mg, w_off = want
+        clear = w_mg > tie
+        if not torch.equal(mx[clear], w_mx[clear]):
+            raise AssertionError(f"K2 column {dtype}: max_gt differs")
+        torch.testing.assert_close(gp, w_gp, rtol=tol, atol=tol)
+        torch.testing.assert_close(
+            off, w_off, rtol=tol if dtype == torch.float64 else 1e-4,
+            atol=1e-30,
+        )
+        # margin is a difference of two log-likelihoods of up to ~10^3:
+        # in f32 its rounding is one ulp of those, 6e-5
+        torch.testing.assert_close(
+            mg, w_mg, rtol=tol, atol=tol if dtype == torch.float64 else 2e-4
+        )
+        err = (gp - w_gp).abs().max().item()
+        ratio = close_ratio(gp, w_gp, tol, tol)
+        ms = device_ms(lambda: K2.genotype_column(*args, tables), torch)
+        eager_ms = time_ms(lambda: K2.genotype_column(*args, tables), torch)
+        plain_ms = time_ms(lambda: G.call_genotypes_plain(*args, tables),
+                           torch)
+        sfx = "f64" if dtype == torch.float64 else "f32"
+        isz = 8 if dtype == torch.float64 else 4
+        n_in = (64 + 4) * N_POS
+        n_out = (10 * isz + 4 + 2 * isz) * N_POS
+        flops = (model_flops(np, counts.cpu().numpy())
+                 if dtype == torch.float64 else 0.0)
+        b_ms, b_by = bound(n_in + n_out, flops)
+        results[f"genotype_column_{sfx}"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "eager_ms": eager_ms}
+        log(f"K2 genotype_column_{sfx}: N={N_POS} max|d gt_prob|={err:.3e}; "
+            f"assert_close(rtol={tol:g}, atol={tol:g}) at {ratio:.3f} of its "
+            f"limit; kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return results
 
 
@@ -434,34 +452,6 @@ def read_batch(np, R, L, n_pos, seed):
     return rd, starts, ori, strand, mapq
 
 
-def check_k1(torch, np, dev):
-    from bs_call_tpu_torch.ops.kernels import pileup_device as PD
-
-    args = [torch.from_numpy(a).to(dev)
-            for a in read_batch(np, 4096, 256, N_POS, 1)]
-    got = PD.pileup_scatter(*args, N_POS, 20)
-    want = PD.device_pileup_plain(*args, N_POS, 20)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("counts2", "qual_sum", "mapq2_sum"), got, want):
-        if not torch.equal(a, b):
-            raise AssertionError(f"K1 {name} differs from the plain version")
-    if int(got[0].sum()) == 0:
-        raise AssertionError("K1 counted no base")
-    ms = device_ms(lambda: PD.pileup_scatter(*args, N_POS, 20), torch)
-    eager_ms = time_ms(lambda: PD.pileup_scatter(*args, N_POS, 20), torch)
-    plain_ms = time_ms(lambda: PD.device_pileup_plain(*args, N_POS, 20),
-                       torch)
-    b_ms, b_by = bound(args[0].numel() + 16 * args[0].shape[0]
-                       + PILEUP_BYTES * N_POS)
-    log(f"K1 pileup_scatter: R=4096 L=256 n_pos={N_POS} exact match, "
-        f"{int(got[0].sum())} bases; kernel {ms:.4f} ms (eager "
-        f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "eager_ms": eager_ms}
-
-
 def hot_batch(np, n_pos, seed):
     """5,000 reads of mapq 59, 150 bases each, over one position (2,000),
     which takes its mapq2 sum past 2^24, plus a trimmed-out row and rows
@@ -482,11 +472,9 @@ def hot_batch(np, n_pos, seed):
 
 
 def check_k12(torch, np, dev):
-    """K12 against its plain version at K1's batch and on the hot
-    position, f64 and f32; K12, K1 and K2's pileup entry timed on the
-    same batch."""
+    """K12 against its plain version at the fused tier's chunk of reads
+    and on the hot position, f64 and f32; K12 f64 timed on the chunk."""
     from bs_call_tpu_torch.ops import genotype as G
-    from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
     from bs_call_tpu_torch.ops.kernels import pileup_device as PD
     from bs_call_tpu_torch.ops.kernels import pileup_genotype_cuda as K12
     from bs_call_tpu_torch.ops.params import ModelParams, model_tables
@@ -530,11 +518,13 @@ def check_k12(torch, np, dev):
             torch.testing.assert_close(mg, w_mg, rtol=tol,
                                        atol=tol if f64 else 2e-4)
             err = (gp - w_gp).abs().max().item()
+            ratio = close_ratio(gp, w_gp, tol, tol)
             hot = int((got[2] >= 2.0**24).sum())
             log(f"K12 {case} {'f64' if f64 else 'f32'}: R={R} L={L} "
                 f"n_pos={N_POS} integers exact, {int(got[0].sum())} bases, "
                 f"{hot} positions with mapq2_sum >= 2^24; max|d gt_prob|="
-                f"{err:.3e} (tol {tol:g})")
+                f"{err:.3e}, assert_close(rtol={tol:g}, atol={tol:g}) at "
+                f"{ratio:.3f} of its limit")
             if case == "hot" and hot == 0:
                 raise AssertionError("K12 hot: mapq2_sum never passed 2^24")
             if case != "batch" or not f64:
@@ -547,15 +537,9 @@ def check_k12(torch, np, dev):
                 c2, qs, _ = PD.device_pileup_plain(*args, N_POS, 20)
                 return G.call_genotypes_pileup_plain(c2, qs, ref, tables)
 
-            def k1_k2():
-                c2, qs, _ = PD.pileup_scatter(*args, N_POS, 20)
-                return K2.genotype_pileup(c2, qs, ref, tables)
-
-            # in turns, on one card: K12, K1 + K2, K1 + K2, K12
-            ms_a, pair_a = device_ms(k12, torch), device_ms(k1_k2, torch)
-            pair_b, ms_b = device_ms(k1_k2, torch), device_ms(k12, torch)
-            ms, pair_ms = (ms_a + ms_b) / 2, (pair_a + pair_b) / 2
-            eager_ms, pair_eager = time_ms(k12, torch), time_ms(k1_k2, torch)
+            ms_a, ms_b = device_ms(k12, torch), device_ms(k12, torch)
+            ms = (ms_a + ms_b) / 2
+            eager_ms = time_ms(k12, torch)
             plain_ms = time_ms(plain, torch)
             n_in = (args[0].numel() + 16 * R + 8 * tiles.shape[0]
                     + 4 * N_POS)
@@ -563,14 +547,267 @@ def check_k12(torch, np, dev):
             b_ms, b_by = bound(n_in + n_out,
                                model_flops(np, want[0].sum(1).cpu().numpy()))
             log(f"K12 pileup_genotype_f64: kernel {ms:.4f} ms ({ms_a:.4f}, "
-                f"{ms_b:.4f}; eager {eager_ms:.4f} ms); K1 + K2 pileup "
-                f"entry on the same batch {pair_ms:.4f} ms ({pair_a:.4f}, "
-                f"{pair_b:.4f}; eager {pair_eager:.4f} ms); plain "
+                f"{ms_b:.4f}; eager {eager_ms:.4f} ms); plain "
                 f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
             result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                      "eager_ms": eager_ms, "k1_k2_ms": pair_ms,
-                      "k1_k2_eager_ms": pair_eager}
+                      "eager_ms": eager_ms}
+    return result
+
+
+def prep_batch(np, n_pos, seed):
+    """A batch K12 cannot take as it is: 3,000 reads of 100-byte rows in
+    no order, 200 all-zero padding rows at start -1 (the JAX package's
+    padding), 100 live rows wholly before 0 and 100 past the chunk."""
+    rng = np.random.default_rng(seed)
+    R, L = 3000, 100
+    lens = rng.integers(40, L + 1, R)
+    q = rng.integers(0, 44, size=(R, L))
+    q[rng.random((R, L)) < 0.02] = 63
+    rd = ((q << 2) | rng.integers(0, 4, size=(R, L))).astype(np.uint8)
+    rd[np.arange(L)[None, :] >= lens[:, None]] = 0
+    starts = rng.integers(-L // 2, n_pos, R)
+    rd[:200] = 0
+    starts[:200] = -1
+    starts[200:300] = -L - rng.integers(0, 1000, 100)
+    starts[300:400] = n_pos + rng.integers(0, 1000, 100)
+    perm = rng.permutation(R)
+    return (rd[perm], starts[perm].astype(np.int32),
+            rng.integers(0, 2, R).astype(np.int32),
+            rng.integers(0, 3, R).astype(np.int32),
+            rng.integers(0, 61, R).astype(np.int32))
+
+
+def check_pileup_model(torch, tag, got, want, dtype):
+    """K12's outputs (gt_prob, max_gt, margin, off_sum, counts2,
+    qual_sum, mapq2_sum) against the plain version's, with phase 5's
+    tolerances. Returns (max|d gt_prob|, its share of assert_close's
+    limit)."""
+    f64 = dtype == torch.float64
+    tol, tie = (1e-12, 1e-9) if f64 else (2e-5, 1e-3)
+    for name, a, b in zip(("counts2", "qual_sum", "mapq2_sum"), got[4:],
+                          want[4:]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: {name} differs")
+    gp, mx, mg, off = got[:4]
+    w_gp, w_mx, w_mg, w_off = want[:4]
+    if not torch.equal(mx[w_mg > tie], w_mx[w_mg > tie]):
+        raise AssertionError(f"{tag}: max_gt differs")
+    torch.testing.assert_close(gp, w_gp, rtol=tol, atol=tol)
+    torch.testing.assert_close(off, w_off, rtol=tol if f64 else 1e-4,
+                               atol=1e-30)
+    torch.testing.assert_close(mg, w_mg, rtol=tol, atol=tol if f64 else 2e-4)
+    return (gp - w_gp).abs().max().item(), close_ratio(gp, w_gp, tol, tol)
+
+
+def check_fused_pileup_call(torch, np, dev):
+    """`fused_pileup_call` on the card, f32 and f64, on the fused tier's
+    chunk and on `prep_batch`, against the plain pileup and model on the
+    unsorted batch. The launch counts are read around the driving calls,
+    one dtype at a time; the timed calls come after."""
+    from bs_call_tpu_torch.ops import genotype as G
+    from bs_call_tpu_torch.ops.kernels import pileup_device as PD
+    from bs_call_tpu_torch.ops.kernels import pileup_genotype_cuda as K12
+    from bs_call_tpu_torch.ops.params import ModelParams, model_tables
+
+    rng = np.random.default_rng(6)
+    ref = torch.from_numpy(rng.integers(0, 5, N_POS).astype(np.int32)).to(dev)
+    batches = {
+        "chunk": [torch.from_numpy(a).to(dev)
+                  for a in read_batch(np, 4096, 256, N_POS, 1)],
+        "prep": [torch.from_numpy(a).to(dev)
+                 for a in prep_batch(np, N_POS, 7)],
+    }
+    result, launches = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        sfx = "f64" if dtype == torch.float64 else "f32"
+        tables = model_tables(ModelParams(), dtype, dev)
+        K12.pileup_genotype.launches = 0
+        got = {case: PD.fused_pileup_call(*args, ref, N_POS, 20, tables)
+               for case, args in batches.items()}
+        launches[sfx] = K12.pileup_genotype.launches
+        if launches[sfx] != len(batches):
+            raise AssertionError(f"fused_pileup_call {sfx}: {launches[sfx]} "
+                                 f"K12 launches for {len(batches)} calls")
+        errs = []
+        for case, args in batches.items():
+            c2, qs, m2 = PD.device_pileup_plain(*args, N_POS, 20)
+            want = (*G.call_genotypes_pileup_plain(c2, qs, ref, tables)[:4],
+                    c2, qs, m2)
+            torch.cuda.synchronize()
+            err, ratio = check_pileup_model(
+                torch, f"fused_pileup_call {case} {sfx}", got[case], want,
+                dtype)
+            errs.append(err)
+            R, L = args[0].shape
+            log(f"fused_pileup_call {case} {sfx}: R={R} L={L} n_pos={N_POS}, "
+                f"one K12 launch a call, integers exact, "
+                f"{int(want[4].sum())} bases; max|d gt_prob|={err:.3e}, "
+                f"assert_close at {ratio:.3f} of its limit")
+        args = batches["chunk"]
+        (rows, *cols), tiles = PD.prepare_batch(*args, N_POS)
+
+        def fused():
+            return PD.fused_pileup_call(*args, ref, N_POS, 20, tables)
+
+        def k12():
+            return K12.pileup_genotype(rows, *cols, tiles, ref, N_POS, 20,
+                                       tables)
+
+        def plain():
+            c2, qs, m2 = PD.device_pileup_plain(*args, N_POS, 20)
+            return G.call_genotypes_pileup_plain(c2, qs, ref, tables)
+
+        fused_ms, ms = device_ms(fused, torch), device_ms(k12, torch)
+        prep_ms = device_ms(lambda: PD.prepare_batch(*args, N_POS), torch)
+        eager_ms, plain_ms = time_ms(fused, torch), time_ms(plain, torch)
+        isz = 8 if dtype == torch.float64 else 4
+        n_in = (rows.numel() + 16 * rows.shape[0] + 8 * tiles.shape[0]
+                + 4 * N_POS)
+        n_out = (PILEUP_BYTES + 10 * isz + 4 + 2 * isz + 8) * N_POS
+        flops = (model_flops(np, plain_counts(torch, PD, args))
+                 if dtype == torch.float64 else 0.0)
+        b_ms, b_by = bound(n_in + n_out, flops)
+        log(f"fused_pileup_call {sfx} on the chunk: device {fused_ms:.4f} ms "
+            f"(K12 {ms:.4f} ms, the preparation alone {prep_ms:.4f} ms), "
+            f"eager {eager_ms:.4f} ms; plain {plain_ms:.4f} ms; K12 bound "
+            f"{b_ms:.4f} ms ({b_by}: {n_in} B in, {n_out // N_POS} B a "
+            f"position out)")
+        result[sfx] = {"max_abs_err": max(errs), "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "library_ms": None,
+                       "fused_ms": fused_ms, "prep_ms": prep_ms,
+                       "eager_ms": eager_ms}
+    return result, launches
+
+
+def plain_counts(torch, PD, args):
+    """counts [N,8] of a batch's plain pileup, on the host."""
+    return PD.device_pileup_plain(*args, N_POS, 20)[0].sum(1).cpu().numpy()
+
+
+def wgbs_reads(np, n_pos, seed, depth=18, L=150):
+    """Reads drawn as `wgbs_inputs` draws pileups: a reference, genotypes
+    (94% hom-ref, 4% het, 2% hom-alt) and per-site methylation; reads of
+    L bases at uniform starts to `depth`, each from one allele, on the C2T
+    or G2A strand (an unmethylated C reads as T on C2T, an unmethylated G
+    as A on G2A), with 3% base errors, q 25-40, mapq 60 for 90%; no read
+    covers 10% of the positions (runs of 100). Returns the read batch
+    (sorted by nothing) and ref [n_pos]."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(1, 5, n_pos).astype(np.int32)
+    rb = ref - 1
+    u = rng.random(n_pos)
+    other, hom_alt = rng.integers(0, 4, n_pos), rng.integers(0, 4, n_pos)
+    alleles = np.stack([np.where(u < 0.98, rb, hom_alt),
+                        np.where(u < 0.94, rb,
+                                 np.where(u < 0.98, other, hom_alt))])
+    meth = rng.random(n_pos)
+    R = depth * n_pos // L
+    starts = rng.integers(-L // 2, n_pos, R)
+    pos = starts[:, None] + np.arange(L)[None, :]
+    inside = (pos >= 0) & (pos < n_pos)
+    p = np.clip(pos, 0, n_pos - 1)
+    base = alleles[rng.integers(0, 2, R)[:, None], p]
+    strand = rng.integers(1, 3, R)
+    conv = rng.random((R, L)) >= meth[p]
+    c2t = (strand[:, None] == 1) & (base == 1) & conv
+    g2a = (strand[:, None] == 2) & (base == 2) & conv
+    base = np.where(c2t, 3, np.where(g2a, 0, base))
+    err = rng.random((R, L)) < 0.03
+    base = np.where(err, rng.integers(0, 4, (R, L)), base)
+    q = rng.integers(25, 41, (R, L))
+    gap = np.repeat(rng.random(-(-n_pos // 100)) < 0.1, 100)[:n_pos]
+    rd = np.where(inside & ~gap[p], (q << 2) | base, 0).astype(np.uint8)
+    mapq = np.where(rng.random(R) < 0.9, 60, rng.integers(0, 60, R))
+    return (rd, starts.astype(np.int32),
+            rng.integers(0, 2, R).astype(np.int32), strand.astype(np.int32),
+            mapq.astype(np.int32)), ref
+
+
+def check_fused_emit_chunk(torch, np, dev):
+    """`fused_emit_chunk` on the card against its plain version (plain
+    pileup, model, emit fields and compaction, on the card) on the read
+    batches of K3's two kinds: (a) `read_batch`'s random bases (a
+    het-rich mix) and (b) `wgbs_reads` at depth 18; then with cap below
+    n_emit. Timed whole and its compaction alone."""
+    from bs_call_tpu_torch.ops import genotype as G
+    from bs_call_tpu_torch.ops.emit_tables import emit_tables
+    from bs_call_tpu_torch.ops.kernels import emit_cuda as K3
+    from bs_call_tpu_torch.ops.kernels import emit_device as E
+    from bs_call_tpu_torch.ops.kernels import pileup_device as PD
+    from bs_call_tpu_torch.ops.kernels import pileup_genotype_cuda as K12
+    from bs_call_tpu_torch.ops.params import ModelParams, model_tables
+
+    mt = model_tables(ModelParams(), torch.float64, dev)
+    et = emit_tables(dev)
+    rng = np.random.default_rng(8)
+    wb, wref = wgbs_reads(np, N_POS, 0)
+    batches = {"a": (read_batch(np, 4096, 256, N_POS, 1),
+                     rng.integers(0, 5, N_POS).astype(np.int32)),
+               "b": (wb, wref)}
+    result = {}
+    for kind, (b, ref) in batches.items():
+        args = [torch.from_numpy(a).to(dev) for a in (*b, ref)]
+        K12.pileup_genotype.launches = K3.emit_fields_cuda.launches = 0
+        n_emit, pos, packed = E.fused_emit_chunk(*args, N_POS, 20, mt, et,
+                                                 N_POS)
+        counts = (K12.pileup_genotype.launches, K3.emit_fields_cuda.launches)
+        if counts != (1, 1):
+            raise AssertionError(f"fused_emit_chunk ({kind}): K12, K3 "
+                                 f"launches {counts}, not one each")
+        c2, qs, m2 = PD.device_pileup_plain(*args[:5], N_POS, 20)
+        model = G.call_genotypes_pileup_plain(c2, qs, args[5], mt)[:4]
+        w_n, w_pos, w_packed = E.compact_emitted(E.pack_fields(
+            E.emit_fields_plain(*model, c2, m2, args[5], et)), N_POS, N_POS)
+        n = int(n_emit)
+        if n != int(w_n) or not torch.equal(pos, w_pos) or n == 0:
+            raise AssertionError(f"fused_emit_chunk ({kind}): n_emit {n} or "
+                                 f"positions differ from the plain version")
+        g = E.unpack_fields(packed.cpu().numpy(), N_POS, n)
+        w = E.unpack_fields(w_packed.cpu().numpy(), N_POS, n)
+        ok = ~(g["risk"] | w["risk"])
+        for name, a in g.items():
+            rows = slice(None) if name in K3_EXACT_EVERYWHERE else ok
+            if name not in ("risk", "fs_hi") and not np.array_equal(
+                    a[rows].view(np.uint8), w[name][rows].view(np.uint8)):
+                raise AssertionError(f"fused_emit_chunk ({kind}): {name} "
+                                     f"differs from the plain version")
+        np.testing.assert_allclose(g["fs_hi"][ok], w["fs_hi"][ok],
+                                   rtol=1e-12, atol=1e-15)
+        if ok.sum() < n // 2:
+            raise AssertionError(f"fused_emit_chunk ({kind}): only "
+                                 f"{ok.sum()} of {n} rows unflagged")
+        n_diff = int((g["risk"] != w["risk"]).sum())
+        cap = n - 100
+        over, o_pos, o_packed = E.fused_emit_chunk(*args, N_POS, 20, mt, et,
+                                                   cap)
+        kept = E.unpack_fields(o_packed.cpu().numpy(), cap)
+        if int(over) != n or not torch.equal(o_pos, pos[:cap]) or any(
+                not np.array_equal(v.view(np.uint8), g[k][:cap].view(
+                    np.uint8)) for k, v in kept.items()):
+            raise AssertionError(f"fused_emit_chunk ({kind}): cap {cap} "
+                                 f"below n_emit {n} not reported as such")
+
+        def whole():
+            return E.fused_emit_chunk(*args, N_POS, 20, mt, et, N_POS)
+
+        ms = device_ms(whole, torch)
+        compact_ms = device_ms(
+            lambda: E.compact_emitted(packed, N_POS, N_POS), torch)
+        eager_ms = time_ms(whole, torch)
+        # compaction reads the packed rows and writes n_emit rows + pos
+        c_ms, c_by = bound(E.ROW_BYTES * N_POS + (E.ROW_BYTES + 4) * N_POS)
+        log(f"fused_emit_chunk ({kind}): R={b[0].shape[0]} L="
+            f"{b[0].shape[1]} n_pos={N_POS}: n_emit {n}, het share "
+            f"{g['het'].mean():.4f}; every field equal on {ok.sum()} rows "
+            f"neither flags, risk bits differ on {n_diff} rows; cap {cap} "
+            f"reports n_emit {int(over)}; device {ms:.4f} ms, of it "
+            f"compaction {compact_ms:.4f} ms ({100 * compact_ms / ms:.1f}%, "
+            f"bound {c_ms:.4f} ms, {c_by}); eager {eager_ms:.4f} ms")
+        result[kind] = {"ms": ms, "compact_ms": compact_ms,
+                        "compact_bound_ms": c_ms, "eager_ms": eager_ms,
+                        "n_emit": n, "risk_diff_rows": n_diff}
     return result
 
 
@@ -579,7 +816,6 @@ def end_to_end(torch, card):
     from bs_call_tpu_torch.native import load as native_load
     from bs_call_tpu_torch.ops.kernels import emit_cuda as K3
     from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
-    from bs_call_tpu_torch.ops.kernels import pileup_device as PD
     from bs_call_tpu_torch.ops.kernels import pileup_genotype_cuda as K12
     from bs_call_tpu_torch.parity import strip_date
     from bs_call_tpu_torch.utils.synth import (
@@ -625,7 +861,8 @@ def end_to_end(torch, card):
         common = [bam, "-r", ref, "-D", dbsnp, "--benchmark-mode"]
         out = {k: os.path.join(tmp, k) for k in (
             "host.vcf", "host.json", "port.vcf", "port.json",
-            "port_off.vcf", "port_off.json")}
+            "port_off.vcf", "port_off.json", "port_shards.vcf",
+            "port_shards.json")}
 
         t0 = time.perf_counter()
         subprocess.run(
@@ -640,45 +877,48 @@ def end_to_end(torch, card):
             with open(out[k]) as f:
                 return f.read()
 
-        def port_run(tag, emit_tier):
+        def port_run(tag, env, flags=()):
             """One port run in this process, the launch counts reset just
-            before it; BS_CALL_EMIT_TIER is read when the engine is built,
-            so it is set around cli.main."""
+            before it; the environment (BS_CALL_EMIT_TIER, read when the
+            engine is built; BS_CALL_FORCE_SHARDS) is set around
+            cli.main."""
             tracer = Tracer()
-            for fn in (PD.pileup_scatter, K2.genotype_pileup,
-                       K2.genotype_column, K3.emit_fields_cuda,
+            for fn in (K2.genotype_column, K3.emit_fields_cuda,
                        K12.pileup_genotype):
                 fn.launches = 0
-            before = os.environ.get("BS_CALL_EMIT_TIER")
-            os.environ["BS_CALL_EMIT_TIER"] = "1" if emit_tier else "0"
+            before = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
             try:
                 t0 = time.perf_counter()
                 rc = cli.main(
                     [*common, "-o", out[f"{tag}.vcf"], "--report-file",
-                     out[f"{tag}.json"], "--device", "cuda"],
+                     out[f"{tag}.json"], "--device", "cuda", *flags],
                     tracer=tracer,
                 )
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             finally:
-                if before is None:
-                    del os.environ["BS_CALL_EMIT_TIER"]
-                else:
-                    os.environ["BS_CALL_EMIT_TIER"] = before
+                for k, v in before.items():
+                    if v is None:
+                        del os.environ[k]
+                    else:
+                        os.environ[k] = v
             if rc != 0:
                 raise AssertionError(f"port CLI ({tag}) exited {rc}")
             launches = {
                 "pileup_genotype_f64": K12.pileup_genotype.launches,
-                "pileup_scatter": PD.pileup_scatter.launches,
-                "genotype_pileup_f64": K2.genotype_pileup.launches,
                 "genotype_column": K2.genotype_column.launches,
                 "emit_fields_f64": K3.emit_fields_cuda.launches,
             }
+            workers = {k[9:]: v for k, v in tracer.counts.items()
+                       if k.startswith("launches_")}
             tiers = {k[5:]: v for k, v in tracer.counts.items()
                      if k.startswith("tier_")}
             log(f"e2e [{card}]: {tag}: tier positions {json.dumps(tiers)}; "
-                f"launches {json.dumps(launches)}; positions "
-                f"{tracer.counts.get('positions', 0)}")
+                f"launches {json.dumps(launches)}"
+                + (f", in the workers {json.dumps(workers)}" if workers
+                   else "")
+                + f"; positions {tracer.counts.get('positions', 0)}")
             log(f"e2e [{card}]: {tag}: stage seconds " + json.dumps(
                 {k: round(v, 3) for k, v in sorted(tracer.times.items())}))
             if read(f"{tag}.vcf") != read("host.vcf"):
@@ -694,36 +934,49 @@ def end_to_end(torch, card):
             chunks = tracer.counts.get("fused_chunks", 0)
             if tiers.get("fused", 0) == 0 or chunks == 0:
                 raise AssertionError(f"{tag}: fused tier carried nothing")
-            if launches["pileup_genotype_f64"] != chunks:
+            k12 = (workers.get("pileup_genotype", 0) if workers
+                   else launches["pileup_genotype_f64"])
+            if k12 != chunks:
                 raise AssertionError(
                     f"{tag}: K12 not once per fused chunk ({chunks}): "
-                    f"{launches}")
-            if launches["pileup_scatter"] or launches["genotype_pileup_f64"]:
-                raise AssertionError(
-                    f"{tag}: K1 or K2's pileup entry on the main path: "
-                    f"{launches}")
-            return wall, launches, tiers
+                    f"{launches} {workers}")
+            return wall, launches, tiers, workers
 
         total = n_ctg * n_reads
-        on_s, launches, tiers = port_run("port", emit_tier=True)
+        on_s, launches, tiers, _w = port_run("port",
+                                             {"BS_CALL_EMIT_TIER": "1"})
         if not (0 < launches["emit_fields_f64"]
                 == launches["pileup_genotype_f64"]):
             raise AssertionError(f"K3 not once per K12 launch: {launches}")
         risky = tiers.get("emit_risk", 0) / max(tiers.get("emit", 0), 1)
         if tiers.get("emit", 0) == 0 or risky > 0.02:
             raise AssertionError(f"emit tier: {tiers}")
-        off_s, off_launches, off_tiers = port_run("port_off", emit_tier=False)
+        off_s, off_launches, off_tiers, _w = port_run(
+            "port_off", {"BS_CALL_EMIT_TIER": "0"})
         if off_launches["emit_fields_f64"] or off_tiers.get("emit", 0):
             raise AssertionError("BS_CALL_EMIT_TIER=0 still ran K3")
+        # --shards 2: two spawned workers, each with its own context on
+        # the card; the parent launches nothing, the workers' counts come
+        # back with their stats
+        sh_s, sh_launches, _tiers, workers = port_run(
+            "port_shards", {"BS_CALL_FORCE_SHARDS": "1",
+                            "BS_CALL_EMIT_TIER": "1"}, ("--shards", "2"))
+        if any(sh_launches.values()) or not (
+                0 < workers.get("emit_fields", 0)
+                == workers.get("pileup_genotype", 0)):
+            raise AssertionError(f"--shards 2: the parent launched "
+                                 f"{sh_launches}, the workers {workers}")
         n_rec = sum(1 for ln in read("port.vcf").splitlines()
                     if not ln.startswith("#"))
         log(f"e2e [{card}]: {total} reads, {n_rec} VCF records; VCF and "
-            f"report bytes of both port runs equal the host's; "
+            f"report bytes of the three port runs equal the host's; "
             f"tier_emit {tiers['emit']}, tier_emit_risk "
             f"{tiers.get('emit_risk', 0)} ({100 * risky:.3f}% of them)")
         log(f"e2e [{card}]: walls: port --device cuda, emit tier on, in "
             f"this process {on_s:.3f} s ({total / on_s:.0f} reads/s); "
             f"emit tier off {off_s:.3f} s ({total / off_s:.0f} reads/s); "
+            f"--shards 2 (two workers, emit tier on) {sh_s:.3f} s "
+            f"({total / sh_s:.0f} reads/s); "
             f"host bs_call_tpu --device cpu as a subprocess {host_s:.3f} s "
             f"({total / host_s:.0f} reads/s)")
         return launches
@@ -765,42 +1018,37 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     k2 = check_k2(torch, np, dev)
-    k1 = check_k1(torch, np, dev)
     k3 = check_k3(torch, np, dev)
     k12 = check_k12(torch, np, dev)
+    fpc, fpc_launches = check_fused_pileup_call(torch, np, dev)
+    check_fused_emit_chunk(torch, np, dev)
     launches = end_to_end(torch, card)
     for mod in ("jax", "bs_call_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"the port's run imported {mod}")
 
     src = "bs_call_tpu_torch/csrc/"
+    pallas = "bs_call_tpu/ops/kernels/genotype_pallas.py:48"
     kernels = [
         {"name": "pileup_genotype_f64", "route": "cuda",
-         "source": src + "pileup_genotype.cu",
-         "replaces": "bs_call_tpu/ops/kernels/genotype_pallas.py:48",
-         "launches": launches["pileup_genotype_f64"],
-         **{k: v for k, v in k12.items() if not k.startswith("k1_k2")}},
-        {"name": "pileup_scatter", "route": "cuda",
-         "source": src + "pileup.cu",
-         "replaces": "bs_call_tpu/ops/kernels/pileup_device.py:37",
-         "launches": launches["pileup_scatter"], "on_main_path": False,
-         **k1},
-        {"name": "genotype_pileup_f64", "route": "cuda",
-         "source": src + "genotype.cu",
-         "replaces": "bs_call_tpu/ops/kernels/genotype_pallas.py:48",
-         "launches": launches["genotype_pileup_f64"], "on_main_path": False,
-         **k2["genotype_pileup_f64"]},
+         "source": src + "pileup_genotype.cu", "replaces": pallas,
+         "launches": launches["pileup_genotype_f64"], **k12},
+        {"name": "pileup_genotype_f32", "route": "cuda",
+         "source": src + "pileup_genotype.cu", "replaces": pallas,
+         "launches": fpc_launches["f32"], "path": "fused_pileup_call",
+         **fpc["f32"]},
+        *({"name": name, "route": "cuda", "source": src + "genotype.cu",
+           "replaces": pallas, "launches": launches["genotype_column"],
+           "on_main_path": False, **k2[name]}
+          for name in ("genotype_column_f64", "genotype_column_f32")),
         {"name": "emit_fields_f64", "route": "cuda",
          "source": src + "emit.cu",
          "replaces": "bs_call_tpu/ops/kernels/emit_device.py:256",
          "launches": launches["emit_fields_f64"], **k3},
     ]
     print(f"[{card}] " + "; ".join(
-        f"{k} kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms "
-        f"bound {v['bound_ms']:.4f} ms"
-        for k, v in {**k2, "pileup_scatter": k1, "emit_fields_f64": k3,
-                     "pileup_genotype_f64": k12}.items())
-        + f"; K1 + K2 pileup f64 {k12['k1_k2_ms']:.4f} ms", flush=True)
+        f"{k['name']} kernel {k['ms']:.4f} ms plain {k['plain_ms']:.4f} ms "
+        f"bound {k['bound_ms']:.4f} ms" for k in kernels), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -25,7 +25,7 @@ from bs_call_tpu.ops.kernels.emit_device import emit_fields_jit
 from bs_call_tpu.ops.postprocess import aggregate_pileup, fisher_strand
 from bs_call_tpu.output.vector_site import _native_emit_prep
 from bs_call_tpu_torch.ops.emit_tables import PACKED_ORDER, emit_tables
-from bs_call_tpu_torch.ops.genotype import call_genotypes_pileup
+from bs_call_tpu_torch.ops.genotype import call_genotypes_pileup_plain
 from bs_call_tpu_torch.ops.kernels import emit_cuda
 from bs_call_tpu_torch.ops.kernels import emit_device as E
 from bs_call_tpu_torch.ops.kernels import pileup_device as PD
@@ -116,11 +116,12 @@ def called_pileup(rng, n, depth):
 
 
 def port_fields(counts2, qual_sum, mapq2, ref, tables, quirk=True):
-    """K2's plain f64 pileup entry, then the plain emit fields, through
+    """The plain f64 model on the pileup planes, then the plain emit
+    fields, through
     the packed layout (numpy views, as the engine reads them)."""
     mt, et = tables
     c2, qs, m2, r = as_torch(counts2, qual_sum, mapq2, ref)
-    gp, mx, mg, off, _q = call_genotypes_pileup(c2, qs, r, mt)
+    gp, mx, mg, off, _q = call_genotypes_pileup_plain(c2, qs, r, mt)
     fields = E.emit_fields_plain(gp, mx, mg, off, c2, m2, r, et, quirk)
     packed = E.pack_fields(fields).numpy()
     assert packed.nbytes == len(ref) * emit_cuda.ROW_BYTES
@@ -130,8 +131,9 @@ def port_fields(counts2, qual_sum, mapq2, ref, tables, quirk=True):
 
 
 def host_prep(counts2, qual_sum, mapq2, ref, k2, quirk=True):
-    """The host path on K2's f64 outputs: _finish_exact's winner rewrite,
-    the native Fisher test, the C++ aggregate and bsc_emit prep."""
+    """The host path on the f64 model's outputs: _finish_exact's winner
+    rewrite, the native Fisher test, the C++ aggregate and bsc_emit
+    prep."""
     gp, mx, off = (a.copy() for a in k2)
     gp[np.arange(len(mx)), mx] = -np.log(1.0 + off) / LOG10
     agg = aggregate_pileup(counts2, qual_sum, mapq2)
@@ -239,7 +241,7 @@ def test_fields_are_local_to_a_tile_and_its_halo(tables):
     mt, et = tables
     c2, qs, m2, r = as_torch(
         *called_pileup(np.random.default_rng(19), n, depth=18))
-    args = (*call_genotypes_pileup(c2, qs, r, mt)[:4], c2, m2, r)
+    args = (*call_genotypes_pileup_plain(c2, qs, r, mt)[:4], c2, m2, r)
     whole = E.emit_fields_plain(*args, et)
     assert whole["het"].any() and not whole["risk"][1:-1].all()
     for base in range(0, n, T):
@@ -348,7 +350,7 @@ def test_plain_fs_matches_jax(jax_and_port):
 
 
 def test_mapq2_sum_past_2_24_is_flagged(tables):
-    """K1 sums mapq^2 exactly and casts once; the host sums in f32 in
+    """K12 sums mapq^2 exactly and casts once; the host sums in f32 in
     read order (bsc_pipeline.cpp:1524). Past 2^24 the two can differ,
     so MQ and the mq40 bit are the host's there: such a row is flagged,
     a row just below is not flagged by that rule."""
@@ -364,7 +366,7 @@ def test_mapq2_sum_past_2_24_is_flagged(tables):
     n_pos = 16
     ref = np.ones(n_pos, np.int32)  # A: every covered row calls AA
     batch = as_torch(rd, starts, ori, strand, mapq, ref)
-    _c2, _qs, m2 = PD.device_pileup(*batch[:5], n_pos, 20)
+    _c2, _qs, m2 = PD.device_pileup_plain(*batch[:5], n_pos, 20)
     m2 = m2.numpy()
     # the fault: at mapq 59 the host's ordered f32 sum leaves the exact
     # sum once it passes 2^24; the exact sum of mapq 60 at 4660 reads
@@ -427,7 +429,7 @@ def test_fused_ll_emit_dispatch_and_refusals(tables):
         assert torch.equal(a, b)
     f = E.unpack_fields(out[5].numpy(), n_pos, rows=100)
     assert all(len(v) == 100 for v in f.values())
-    c2, _qs, m2 = PD.device_pileup(*batch[:5], n_pos, 20)
+    c2, _qs, m2 = PD.device_pileup_plain(*batch[:5], n_pos, 20)
     want = E.emit_fields_plain(*base[:4], c2, m2, batch[5], et)
     np.testing.assert_array_equal(f["phred"], want["phred"][:100].numpy())
     np.testing.assert_array_equal(f["risk"], want["risk"][:100].numpy())
@@ -451,7 +453,7 @@ def test_kernel_matches_plain_on_card(tables):
     counts2, qual_sum, mapq2, ref = random_pileup(rng, 4096)
     mapq2[100:104] = 2.0**24 + 4096  # past the exact range
     c2, qs, m2, r = as_torch(counts2, qual_sum, mapq2, ref, device=dev)
-    k2 = call_genotypes_pileup(c2, qs, r, mt)[:4]
+    k2 = call_genotypes_pileup_plain(c2, qs, r, mt)[:4]
     n0 = emit_cuda.emit_fields_cuda.launches
     got = E.emit_fields(*k2, c2, m2, r, et)
     assert emit_cuda.emit_fields_cuda.launches == n0 + 1
@@ -531,7 +533,7 @@ def test_tiled_kernel_matches_plain_on_card(tables, kind, n):
         counts2, qual_sum, mapq2, ref = called_pileup(rng, n, 18)
         c2, qs, m2, r = as_torch(counts2, qual_sum, mapq2, ref, device=dev)
         mt = model_tables(ModelParams(), torch.float64, dev)
-        args = (*call_genotypes_pileup(c2, qs, r, mt)[:4], c2, m2, r)
+        args = (*call_genotypes_pileup_plain(c2, qs, r, mt)[:4], c2, m2, r)
         if kind == "called_unaligned":
             args = tuple(one_element_in(a) for a in args)
             assert args[0].data_ptr() % 16 and args[4].data_ptr() % 16

@@ -273,14 +273,20 @@ def test_device_cuda_without_card_raises(tmp_path):
     assert not (tmp_path / "x.vcf").exists()
 
 
-@pytest.mark.parametrize("flag", [["--shards", "2"], ["--num-hosts", "2",
-                                                       "--host-id", "0"]])
+@pytest.mark.parametrize("flag", [["--num-hosts", "2", "--shards", "2"],
+                                  ["--num-hosts", "2", "--host-id", "0"]])
 def test_unported_paths_refused(tmp_path, capsys, flag):
+    """--num-hosts above 1 is not ported: it exits 2 with a message that
+    names --num-hosts alone (--shards is ported, tests/test_torch_shards.
+    py), with --shards beside it too."""
     cfg = golden_cfg(tmp_path)
     rc = cli.main([cfg.input_file, "-r", cfg.reference_file, "-o",
                    str(tmp_path / "x.vcf"), "--device", "cpu", *flag])
     assert rc == 2
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and "--num-hosts" in err
+    assert "--shards" not in err
+    assert not (tmp_path / "x.vcf").exists()
 
 
 def test_cli_never_imports_jax(tmp_path):

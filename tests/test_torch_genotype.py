@@ -18,6 +18,7 @@ from bs_call_tpu.ops.kernels.genotype_pallas import TILE, call_genotypes_pallas
 from bs_call_tpu.ops.kernels.pileup_device import _agg_quals_f32
 from bs_call_tpu_torch.ops import genotype as G
 from bs_call_tpu_torch.ops.kernels import genotype_cuda
+from bs_call_tpu_torch.ops.kernels.pileup_genotype_cuda import pileup_genotype
 from bs_call_tpu_torch.ops.params import ModelParams, model_tables
 from bs_call_tpu_torch.pipeline.engine import TorchCallEngine
 
@@ -163,7 +164,7 @@ def test_pileup_entry_quals_bit_equal(dtype):
         _agg_quals_f32(jnp.asarray(counts2.sum(axis=1)), qual_sum)
     )
     tables = model_tables(ModelParams(UC, OC, RB), dtype, CPU)
-    out = G.call_genotypes_pileup(
+    out = G.call_genotypes_pileup_plain(
         torch.from_numpy(counts2), torch.from_numpy(qual_sum),
         torch.from_numpy(ref), tables,
     )
@@ -184,9 +185,16 @@ def test_wrappers_refuse_other_devices():
     counts, quals, ref = make_inputs(0, n=256)
     cpu_tables = model_tables(ModelParams(), torch.float64, CPU)
     args = [torch.from_numpy(a) for a in (counts, quals, ref)]
-    # the kernel launcher takes CUDA tensors only
+    # the kernel launchers take CUDA tensors only: K2's and K12's
     with pytest.raises(ValueError):
         genotype_cuda.genotype_column(*args, cpu_tables)
+    with pytest.raises(ValueError):
+        pileup_genotype(
+            torch.zeros((4, 64), dtype=torch.uint8),
+            *(torch.zeros(4, dtype=torch.int32),) * 4,
+            torch.zeros((2, 2), dtype=torch.int32), args[2], 256, 20,
+            cpu_tables,
+        )
     # tensors and tables on different devices
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError):
@@ -213,9 +221,3 @@ def test_kernel_matches_plain_on_card(dtype):
     assert torch.equal(got[1][clear], want[1][clear])
     torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
     torch.testing.assert_close(got[3], want[3], rtol=100 * tol, atol=1e-30)
-    counts2, qual_sum, ref2 = pileup_inputs(7)
-    args2 = [torch.from_numpy(a).to(dev) for a in (counts2, qual_sum, ref2)]
-    got = G.call_genotypes_pileup(*args2, tables)
-    want = G.call_genotypes_pileup_plain(*args2, tables)
-    assert torch.equal(got[4], want[4])
-    torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)

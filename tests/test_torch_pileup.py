@@ -1,9 +1,8 @@
 """Pileup of the PyTorch port (`bs_call_tpu_torch.ops.kernels.
-pileup_device`, the plain version of K1, and the fused exact tier with
-K12's sorted batch and tile table) against the JAX package's
-`device_pileup` / `fused_ll_dd` and the host `build_pileup`. The CUDA
-kernels themselves are compared with these plain versions on the card
-(marked `cuda`)."""
+pileup_device`: the plain version of K12's pileup, and the fused exact
+tier with K12's sorted batch and tile table) against the JAX package's
+`device_pileup` / `fused_ll_dd` and the host `build_pileup`. K12 itself
+is compared with these plain versions on the card (marked `cuda`)."""
 
 import numpy as np
 import pytest
@@ -48,7 +47,8 @@ def test_plain_pileup_matches_jax_and_host(tmp_path, seed):
         )
         c2, qs, m2 = (
             t.numpy()
-            for t in PD.device_pileup(*as_torch(*batch), sz, cfg.min_qual)
+            for t in PD.device_pileup_plain(*as_torch(*batch), sz,
+                                            cfg.min_qual)
         )
         assert c2.dtype == np.int32 and qs.dtype == np.float32
         assert m2.dtype == np.float32
@@ -76,7 +76,7 @@ def native_blocks(bam, cfg):
 
 
 def test_fused_ll_f64_matches_fused_ll_dd(tmp_path):
-    """K1 -> K2 (plain, f64) against the JAX df32 fused tier on every
+    """K12's plain version (f64) against the JAX df32 fused tier on every
     block of one fixture, padded to one shape as the engine pads."""
     ref, bam = random_bam(tmp_path, n_pairs=400, seed=3)
     cfg = CallerConfig()
@@ -147,36 +147,25 @@ def test_pad_read_batch_matches_jax():
 
 
 def test_pileup_refuses_other_devices():
-    batch = as_torch(
-        np.zeros((4, 8), np.uint8), *(np.zeros(4, np.int32),) * 4
+    from bs_call_tpu_torch.ops.kernels.pileup_genotype_cuda import (
+        pileup_genotype,
     )
+
+    batch = as_torch(
+        np.zeros((4, 64), np.uint8), *(np.zeros(4, np.int32),) * 4
+    )
+    ref = torch.zeros(16, dtype=torch.int32)
+    tables64 = model_tables(ModelParams(), torch.float64, CPU)
+    with pytest.raises(ValueError):  # the launcher is CUDA-only
+        pileup_genotype(*batch, torch.zeros((1, 2), dtype=torch.int32), ref,
+                        16, 20, tables64)
     with pytest.raises(ValueError):
-        PD.pileup_scatter(*batch, 16, 20)  # the launcher is CUDA-only
-    with pytest.raises(ValueError):
-        PD.device_pileup(*(t.to("meta") for t in batch), 16, 20)
+        PD.fused_pileup_call(*(t.to("meta") for t in (*batch, ref)), 16, 20,
+                             tables64)
     tables = model_tables(ModelParams(), torch.float32, CPU)
     with pytest.raises(ValueError):
         PD.fused_ll_f64(*batch, torch.zeros(16, dtype=torch.int32),
                         n_pos=16, min_qual=20, tables=tables)
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card(tmp_path):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc")
-    dev = torch.device("cuda")
-    ref, bam = random_bam(tmp_path, n_pairs=400, seed=3)
-    for blk, reads in native_blocks(bam, CallerConfig()):
-        sz = blk["y"] - blk["x"] + 1
-        batch = as_torch(
-            *PD.pad_read_batch(reads, 0, sz - 1, 1024, 256), device=dev
-        )
-        n0 = PD.pileup_scatter.launches
-        got = PD.device_pileup(*batch, sz, 20)
-        assert PD.pileup_scatter.launches == n0 + 1
-        want = PD.device_pileup_plain(*batch, sz, 20)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
 
 
 # ---- K12: the pileup and the model per tile of positions ----
@@ -296,7 +285,7 @@ def test_k12_tiles_cover_the_plain_pileup(case):
 @pytest.mark.parametrize("case", K12_CASES)
 def test_k12_plain_matches_fused_ll_dd(case):
     """K12's plain version (`fused_ll_f64` on the CPU: the plain pileup,
-    then K2's plain pileup entry) against the JAX df32 fused tier on the
+    then the plain model on its planes) against the JAX df32 fused tier on the
     same sorted, padded batch: quals exact, log10 posteriors and off-sum
     within 1e-9 (df32 carries ~1e-10 relative), max_gt equal where the
     margin clears the oracle's tie threshold."""
