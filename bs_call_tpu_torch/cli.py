@@ -6,8 +6,12 @@ kernels and raises when PyTorch sees no CUDA device; `--device cpu` runs
 their plain PyTorch versions. Output bytes equal those of
 `python -m bs_call_tpu.cli --device cpu` on the same input and flags.
 `--shards N` runs N worker processes, one contig group each
-(`parallel/shard_runner.py`), every one on the named device;
-`--num-hosts` above 1 is not yet ported and exits 2.
+(`parallel/shard_runner.py`), every one on the named device; `--num-hosts
+N --host-id i` runs host i's contig group (`parallel/distributed.py`), and
+with `--coordinator host:port` the hosts merge their stats over a gloo
+process group and host 0 writes the report. Each process resolves
+`--device` itself. With two or more visible cards, each process shards
+every chunk's positions over all of them (`parallel/sharding.py`).
 
 Run as `python -m bs_call_tpu_torch.cli in.bam -r ref.fa -o out.vcf ...`.
 """
@@ -96,12 +100,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--device (auto-degrades to one process below "
         "BS_CALL_SHARD_MIN_CORES cores unless BS_CALL_FORCE_SHARDS=1)",
     )
-    # multi-host runs are not yet ported: the flags parse, and N > 1
-    # exits 2
     p.add_argument(
         "--num-hosts", type=int, default=0,
-        help="total hosts in a multi-host run (not yet ported: N > 1 "
-        "exits 2)",
+        help="total hosts in a multi-host run (each calls its contig "
+        "assignment and writes its own -o; concatenate them with "
+        "python -m bs_call_tpu_torch.concat)",
     )
     p.add_argument(
         "--host-id", type=int, default=None,
@@ -109,7 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--coordinator", default=None,
-        help="coordinator address host:port of a multi-host run",
+        help="host 0's host:port for the stats merge (torch.distributed, "
+        "gloo); without it each host writes its own report",
     )
     return p
 
@@ -244,15 +248,9 @@ def _input_is_compressed(path) -> bool:
 def main(argv=None, tracer=None):
     """CLI entry. `tracer` (a `bs_call_tpu_torch.utils.trace.Tracer`), when
     given, collects stage times and per-tier position counts (of a
-    sharded run, the workers' counts and kernel launches summed)."""
+    sharded run, the workers' counts and kernel launches summed; of a
+    multi-host run, this host's)."""
     args = build_parser().parse_args(argv)
-    if args.num_hosts and args.num_hosts > 1:
-        print(
-            "bs_call_torch: --num-hosts is not yet ported to "
-            "bs_call_tpu_torch; run on one host",
-            file=sys.stderr,
-        )
-        return 2
     if not args.reference:
         print(
             "Error in bs_call: a sequence archive is mandatory",
@@ -262,6 +260,8 @@ def main(argv=None, tracer=None):
     if not args.input_file:
         args.input_file = "-"
     cfg = args_to_config(args)
+    if args.num_hosts and args.num_hosts > 1:
+        return _run_multihost(args, cfg, tracer)
     if args.shards and args.shards > 1:
         rc = _run_shards(args, cfg, tracer)
         if rc is not None:
@@ -335,16 +335,62 @@ def _run_shards(args, cfg, tracer):
         collect_stats=bool(cfg.report_file), tracer=tracer,
     )
     if cfg.report_file and stats is not None:
-        from types import SimpleNamespace
-
-        from bs_call_tpu_torch.stats.report import write_report
-
-        tbl = SimpleNamespace(contigs=[
-            SimpleNamespace(name=n, ctg_stats=cs) for n, cs in ctg_stats
-        ])
-        with open(cfg.report_file, "w") as f:
-            write_report(f, cfg, stats, tbl, dbsnp=cfg.dbsnp_file)
+        _write_merged_report(cfg, stats, ctg_stats)
     return 0
+
+
+def _run_multihost(args, cfg, tracer):
+    """The `--num-hosts N` branch of `bs_call_tpu.cli.main`, with its
+    refusals: an exit code."""
+    if args.host_id is None or not (0 <= args.host_id < args.num_hosts):
+        print("--num-hosts requires --host-id in [0, num-hosts)",
+              file=sys.stderr)
+        return 1
+    if not cfg.output_file:
+        print("--num-hosts requires -o (per-host output)", file=sys.stderr)
+        return 1
+    if args.shards and args.shards > 1:
+        print(
+            "--num-hosts and --shards are mutually exclusive "
+            "(use shards within a single host)",
+            file=sys.stderr,
+        )
+        return 1
+    if cfg.input_file == "-":
+        print(
+            "--num-hosts requires a seekable input file (the header "
+            "is read once for contig assignment, then the caller "
+            "re-opens the input); cannot run from stdin",
+            file=sys.stderr,
+        )
+        return 1
+    from bs_call_tpu_torch.parallel.distributed import run_multihost
+
+    stats, ctg_stats, _wrote = run_multihost(
+        cfg, resolve_device(args.device), args.num_hosts, args.host_id,
+        coordinator=args.coordinator, tracer=tracer,
+    )
+    # with a coordinator every host holds the global stats and host 0
+    # writes the one report; without one, each host writes its own
+    if cfg.report_file and stats is not None and (
+        args.host_id == 0 or not args.coordinator
+    ):
+        _write_merged_report(cfg, stats, ctg_stats)
+    return 0
+
+
+def _write_merged_report(cfg, stats, ctg_stats):
+    """The JSON report of stats merged across processes, with their
+    per-contig stats as (name, CtgStats) in contig order."""
+    from types import SimpleNamespace
+
+    from bs_call_tpu_torch.stats.report import write_report
+
+    tbl = SimpleNamespace(contigs=[
+        SimpleNamespace(name=n, ctg_stats=cs) for n, cs in ctg_stats
+    ])
+    with open(cfg.report_file, "w") as f:
+        write_report(f, cfg, stats, tbl, dbsnp=cfg.dbsnp_file)
 
 
 if __name__ == "__main__":

@@ -16,8 +16,13 @@
 //                 off_sum [n] f64 (K12's)
 //   the pileup's  counts2 [n,2,8] i32, mapq2_sum [n] f32 (K12's)
 //   ref [n] i32 (0..4), the emit tables (ops/emit_tables.py: `packed`
-//   int32 in PACKED_ORDER, lfact [256] f64), and quirk (the reference's
-//   counts[0][6] in the GT genotype's Fisher table).
+//   int32 in PACKED_ORDER, lfact [256] f64), quirk (the reference's
+//   counts[0][6] in the GT genotype's Fisher table), and ctx, null or a
+//   device int32 [2]: the 1-based genotype codes of the positions just
+//   before and just after the chunk, -1 where unknown. A position-sharded
+//   caller (ops/kernels/emit_device.py `sharded_fused_ll_emit`) copies a
+//   neighbour slab's border codes there, device to device, so no host
+//   round trip stands between that slab's K12 and this K3.
 // Output: one byte buffer, struct of arrays in the order of
 // ops/kernels/emit_cuda.py LAYOUT (offsets below), so the chunk's fields
 // come back in one D2H copy. On a row flagged `risk`, fs_hi, fs_int, flt
@@ -45,19 +50,21 @@
 //   mapq2_sum, ref) are read by each row's thread, coalesced, and the
 //   light threads run GQ's log/exp chain on `off` while the copies fly.
 //   Two threads read the genotype codes of the rows just outside the
-//   tile (the CG automaton's neighbours) from device memory.
+//   tile (the CG automaton's neighbours) from device memory, or from ctx
+//   at the chunk's ends (0, uncalled, where it is unknown).
 // * Warps 0-3, the light pass, one thread a position: MQ, GQ, dp1, QD,
 //   GL, gl_len, ref5, gt1 (shared with the neighbours through shared
 //   memory), the CG code, cond_cg, and every risk bit that does not
 //   depend on the Fisher test.
 // * Warps 4-7 at the same time, the Fisher test. One thread a position
 //   computes het and the Fisher table. Het rows not already flagged
-//   (chunk edges, ll ties, mapq2_sum >= 2^24, a table total >= 256, which
-//   would need lgamma) go into a shared queue: warp ballot, popc, one
-//   shared atomic a warp. A flagged het row keeps its risk bit and skips
-//   the test; with the total below 256 no tail is longer than 127 steps,
-//   so the plain version's FISHER_IMAX clamp never applies here. One
-//   thread a queued row computes its two terms (the exp calls) and its
+//   (chunk edges whose ctx is unknown, ll ties, mapq2_sum >= 2^24, a
+//   table total >= 256, which would need lgamma) go into a shared queue:
+//   warp ballot, popc, one shared atomic a warp. A flagged het row keeps
+//   its risk bit and skips the test; with the total below 256 no tail is
+//   longer than 127 steps, so the plain version's FISHER_IMAX clamp never
+//   applies here. One thread a queued row computes its two terms (the exp
+//   calls) and its
 //   tails. The walks then split: a step's factor (u-i)(v-i) /
 //   ((w+i+1)(z+i+1)) does not depend on the carry, so threads compute
 //   all the tile's factors in parallel (the divisions) into shared
@@ -387,6 +394,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                        const int* __restrict__ ref, long long n,
                        const int* __restrict__ tab,
                        const double* __restrict__ lf, int quirk,
+                       const int* __restrict__ ctx,
                        uint8_t* __restrict__ out) {
   __shared__ __align__(16) int s_tab[kTabN];
   __shared__ __align__(16) double s_lf[kLfactN];
@@ -409,6 +417,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int tid = threadIdx.x;
   const long long base = (long long)blockIdx.x * kT;
   const int rows = (int)min((long long)kT, n - base);
+  // the codes just outside the chunk (clamped to a code), -1 unknown; only
+  // the first and the last tile read them
+  const int ctx_prev = ctx && base == 0 ? min(ctx[0], kNG) : -1;
+  const int ctx_next = ctx && base + rows == n ? min(ctx[1], kNG) : -1;
   if (tid == 0) mbar_init(&s_bar);
   __syncthreads();
   stage_tile<4>({{s_tab, tab, 4 * kTabN},
@@ -419,7 +431,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (tid < 2) {  // the codes of the rows just outside the tile
     const long long j = tid == 0 ? base - 1 : base + rows;
     s_gt1[tid == 0 ? 0 : rows + 1] =
-        j >= 0 && j < n ? gt1_at(counts2, max_gt, j) : 0;
+        j >= 0 && j < n ? gt1_at(counts2, max_gt, j)
+                        : max(j < 0 ? ctx_prev : ctx_next, 0);
   }
   if (tid == 0) s_nq = 0;
   const int gl_head = (int)((reinterpret_cast<uintptr_t>(
@@ -549,8 +562,9 @@ __global__ void __launch_bounds__(kThreads, 2)
         code = a1 > 0 ? (s_tab[kCflag + g1c] ? 'H' : 'N') : '.';
       else code = '.';
 
-      // the chunk's edges lack their CG context; ll ties go to the oracle
-      if (i == 0 || i == n - 1) risk = true;
+      // a chunk's edge without its CG context; ll ties go to the oracle
+      if ((i == 0 && ctx_prev < 0) || (i == n - 1 && ctx_next < 0))
+        risk = true;
       if (mg < kTieMargin) risk = true;
 
       o_dp1[i] = dp1;
@@ -586,7 +600,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       // p = 1, FS 0
       const int total = f0 + f1 + f2 + f3;
       const bool big = total >= kLfactN;
-      const bool flagged = big || i == 0 || i == n - 1 ||
+      const bool flagged = big || (i == 0 && ctx_prev < 0) ||
+                           (i == n - 1 && ctx_next < 0) ||
                            mg < kTieMargin || m2 >= kMq2Exact;
       queued = het && !flagged && total > 0;
       s_ftab[r] = make_int4(f0, f1, f2, f3);
@@ -698,17 +713,20 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 }  // namespace
 
+// ctx comes after the stream, so that a caller of the entry as it was
+// before ctx (tools/kernel_phases.py times older versions of this file
+// with one call) passes its arguments where that version reads them.
 extern "C" int bsct_emit_fields(const double* gt_prob, const int* max_gt,
                                 const double* margin, const double* off,
                                 const int* counts2, const float* mapq2_sum,
                                 const int* ref, long long n, const int* tab,
                                 const double* lfact, int quirk, uint8_t* out,
-                                void* stream) {
+                                void* stream, const int* ctx) {
   if (n > 0) {
     const unsigned int blocks = (unsigned int)((n + kT - 1) / kT);
     emit_fields_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         gt_prob, max_gt, margin, off, counts2, mapq2_sum, ref, n, tab, lfact,
-        quirk, out);
+        quirk, ctx, out);
   }
   return (int)cudaGetLastError();
 }

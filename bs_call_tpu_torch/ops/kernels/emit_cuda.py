@@ -13,7 +13,9 @@ in LAYOUT order (each field's rows contiguous), so the fields come back
 to the host in a single D2H copy. On a row K3 flags `risk`, fs_hi,
 fs_int, flt and mac1 are unspecified (K3 skips the Fisher test of a row
 it already flags; the host recomputes every flagged row); every other
-field, gt1 among them, is computed on every row.
+field, gt1 among them, is computed on every row. The first and the last
+row are flagged unless `ctx` gives the genotype codes just outside the
+chunk (a position-sharded caller's neighbour slabs).
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ def _kernels():
         lib = _build.load()
         lib.bsct_emit_fields.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P,
-            ctypes.c_int, _P, _P,
+            ctypes.c_int, _P, _P, _P,
         ]
         lib.bsct_emit_fields.restype = ctypes.c_int
         _lib = lib
@@ -69,11 +71,13 @@ def _kernels():
 
 
 def emit_fields_cuda(gt_prob, max_gt, margin, off, counts2, mapq2_sum, ref,
-                     tables: EmitTables, quirk: bool = True):
+                     tables: EmitTables, quirk: bool = True, ctx=None):
     """K3: the model's outputs (gt_prob [N,10] f64, max_gt [N] i32, margin
     [N] f64, off_sum [N] f64) plus the pileup's counts2 [N,2,8] i32 and
     mapq2_sum [N] f32 (K12's on the fused tier) and ref [N] i32 -> the
-    packed fields, uint8 [N * ROW_BYTES].
+    packed fields, uint8 [N * ROW_BYTES]. ctx: None, or int32 [2] on the
+    same device, the 1-based genotype codes (0 uncalled) just before and
+    just after the chunk, -1 where unknown; K3 reads it on the device.
     CUDA tensors only; counts its launches in `launches`."""
     dev = gt_prob.device
     n = gt_prob.shape[0] if gt_prob.dim() else 0
@@ -86,6 +90,8 @@ def emit_fields_cuda(gt_prob, max_gt, margin, off, counts2, mapq2_sum, ref,
     require(ref, "ref", torch.int32, (n,), dev)
     require(tables.packed, "tables.packed", torch.int32, (PACKED_N,), dev)
     require(tables.lfact, "tables.lfact", torch.float64, (256,), dev)
+    if ctx is not None:
+        require(ctx, "ctx", torch.int32, (2,), dev)
     out = torch.empty(n * ROW_BYTES, dtype=torch.uint8, device=dev)
     if n == 0:
         return out
@@ -96,7 +102,7 @@ def emit_fields_cuda(gt_prob, max_gt, margin, off, counts2, mapq2_sum, ref,
             off.data_ptr(), counts2.data_ptr(), mapq2_sum.data_ptr(),
             ref.data_ptr(), n, tables.packed.data_ptr(),
             tables.lfact.data_ptr(), int(bool(quirk)), out.data_ptr(),
-            stream,
+            stream, None if ctx is None else ctx.data_ptr(),
         )
     check_rc(rc, "emit_fields")
     emit_fields_cuda.launches += 1

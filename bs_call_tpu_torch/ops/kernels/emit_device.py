@@ -4,7 +4,9 @@ both return.
 
 Counterpart of `bs_call_tpu/ops/kernels/emit_device.py` (`emit_fields_dd`
 :256, `_fisher_dd` :90, `_cg_codes` :495, `compact_emitted` :666,
-`fused_emit_chunk` :692). From the model's outputs and
+`fused_emit_chunk` :692, and the position-sharded `_winner_codes` :558,
+`_gt1_halo` :570, `sharded_fused_ll_emit` :581, `sharded_emit_fields`
+:635). From the model's outputs and
 the pileup's accumulators (K12's on the fused tier) it computes what the host emit prep (`bsc_emit.cpp`, with
 the Fisher test of `bsc_stats.cpp`) computes per row: GQ phred, QD, FS,
 the q20/qd2/fs60/mq40 filter bits, mac1, the GL values, the CG-status
@@ -33,8 +35,9 @@ exactly where those can reach a quantization:
   as the host recomputes it with its own) when a relative move of
   GL_BAND changes its f32 cast or clamp; the other slots are K2's own
   doubles, the same the host holds, so their cast is exact;
-* the first and last row (their CG context lies outside the chunk), and
-  ll ties (margin < 1e-9, which the host's oracle recomputes).
+* the first and last row, unless `ctx` gives the genotype codes just
+  outside the chunk (their CG context), and ll ties (margin < 1e-9, which
+  the host's oracle recomputes).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from bs_call_tpu_torch.ops.kernels.emit_cuda import (
     ROW_BYTES,
     emit_fields_cuda,
 )
+from bs_call_tpu_torch.parallel.sharding import gather, halo, shard_positions
 
 FISHER_IMAX = 512  # steps of one Fisher tail walk; longer -> flagged
 LFACT_N = 256  # the lfact table; larger arguments call lgamma -> flagged
@@ -179,12 +183,17 @@ def _gl_cast(v):
 
 
 def emit_fields_plain(gt_prob, max_gt, margin, off, counts2, mapq2_sum, ref,
-                      tables: EmitTables, quirk: bool = True):
+                      tables: EmitTables, quirk: bool = True, ctx=None):
     """Plain version of K3. gt_prob [n,10] f64, max_gt [n], margin [n]
     f64, off [n] f64 (the model's outputs); counts2 [n,2,8], mapq2_sum
-    [n] f32 (the pileup's); ref [n] (0..4, clipped). quirk: the reference's counts[0][6]
-    in the GT genotype's Fisher table (call_genotypes.c:98). Returns a
-    dict of [n] tensors (gl_vals [n,5]) named as LAYOUT."""
+    [n] f32 (the pileup's); ref [n] (0..4, clipped). quirk: the
+    reference's counts[0][6] in the GT genotype's Fisher table
+    (call_genotypes.c:98). ctx: None, or int32 [2] on the same device, the
+    1-based genotype codes just before and just after the chunk, -1 where
+    unknown (`emit_cuda.emit_fields_cuda`). Returns a dict of [n] tensors
+    (gl_vals [n,5]) named as LAYOUT. Every row's fields follow from its
+    own inputs, its neighbours' codes and, at the ends, ctx, so a slab
+    given its neighbours' codes gets the whole chunk's rows."""
     n = gt_prob.shape[0]
     c2 = counts2.long()
     counts = c2.sum(dim=1)
@@ -260,15 +269,17 @@ def emit_fields_plain(gt_prob, max_gt, margin, off, counts2, mapq2_sum, ref,
     moved = (_gl_cast(v - e) != gl_vals) | (_gl_cast(v + e) != gl_vals)
     risk |= (is_win & ~fixed & moved).any(dim=1)
 
-    # genotype codes and the CG automaton over within-chunk neighbours
+    # genotype codes and the CG automaton over the rows' neighbours, ctx's
+    # codes (0, uncalled, where unknown) past the chunk's ends
     gt1 = torch.where(covered, mx + 1, 0)
-    zero = gt1.new_zeros(1)
-    a1 = torch.cat([zero, gt1[:-1]])
-    a3 = torch.cat([gt1[1:], zero])
+    ctx = gt1.new_full((2,), -1) if ctx is None else ctx.long().clamp(max=10)
+    edge = ctx.clamp(min=0)
+    a1 = torch.cat([edge[:1], gt1[:-1]])
+    a3 = torch.cat([gt1[1:], edge[1:]])
     cg_code, cond_cg = cg_codes(gt1, a1, a3, mx, tables.cflag, tables.gflag)
     if n:
-        risk[0] = True
-        risk[-1] = True
+        risk[0] |= ctx[0] < 0
+        risk[-1] |= ctx[1] < 0
     risk |= margin < TIE_MARGIN
     return {
         "fs_hi": fs, "gl_vals": gl_vals, "dp1": dp1, "mq": mq,
@@ -308,7 +319,7 @@ def unpack_fields(buf, n: int, rows: int | None = None):
 
 
 def emit_fields(gt_prob, max_gt, margin, off, counts2, mapq2_sum, ref,
-                tables: EmitTables, quirk: bool = True):
+                tables: EmitTables, quirk: bool = True, ctx=None):
     """Packed emit fields (uint8 [n * ROW_BYTES]): a CPU tensor goes to
     the plain version, a CUDA tensor to K3."""
     kind = gt_prob.device.type
@@ -319,12 +330,12 @@ def emit_fields(gt_prob, max_gt, margin, off, counts2, mapq2_sum, ref,
     if kind == "cpu":
         return pack_fields(emit_fields_plain(
             gt_prob, max_gt, margin, off, counts2, mapq2_sum, ref, tables,
-            quirk,
+            quirk, ctx,
         ))
     if kind == "cuda":
         return emit_fields_cuda(
             gt_prob, max_gt, margin, off, counts2, mapq2_sum, ref, tables,
-            quirk,
+            quirk, ctx,
         )
     raise ValueError(f"no emit kernel for device {gt_prob.device}")
 
@@ -375,3 +386,90 @@ def fused_emit_chunk(rd, starts, ori, strand, mapq, ref, n_pos: int,
     *_out, packed = fused_ll_emit(rd, starts, ori, strand, mapq, ref, n_pos,
                                   min_qual, tables, emit, quirk)
     return compact_emitted(packed, n_pos, cap)
+
+
+# ---- position sharding (`parallel/sharding.py`): a chunk's emit fields
+# over slabs of whole tiles, one device each ----
+
+
+def _winner_codes(max_gt, counts2):
+    """1-based genotype codes as K3 derives them: max_gt clamped to a
+    genotype, plus one, and 0 where the position has no reads. int32."""
+    covered = counts2.reshape(counts2.shape[0], -1).sum(dim=1) > 0
+    return torch.where(covered, max_gt.clamp(0, 9) + 1, 0).to(torch.int32)
+
+
+def _ends(t):
+    """The first and the last row of t."""
+    return torch.cat([t[:1], t[-1:]])
+
+
+def _gt1_halo(borders):
+    """K3's ctx for each slab. borders: per slab, (max_gt, counts2) of its
+    first and last rows, on its device. Returns per slab int32 [2] on its
+    device: the code of the row before the slab (the last of the slab
+    before) and of the row after it (the first of the slab after), -1 at
+    the two ends of the chunk. Each code crosses as a one-row copy between
+    devices, so K3 reads it without a host round trip."""
+    codes = [_winner_codes(mx, c2) for mx, c2 in borders]
+    return [torch.cat(pair) for pair in halo(codes, -1)]
+
+
+def concat_packed(parts, device):
+    """One packed buffer of the rows of several, in order, on `device`:
+    parts = [(packed uint8 [n * ROW_BYTES], n)], each field's rows of
+    every part one after the other (the buffer is struct of arrays)."""
+    views = [unpack_fields(buf, n) for buf, n in parts]
+    return torch.cat([
+        gather([v[name] for v in views], device).reshape(-1).view(
+            torch.uint8)
+        for name, _dt, _k in LAYOUT
+    ])
+
+
+def sharded_emit_fields(devices, gt_prob, max_gt, margin, off, counts2,
+                        mapq2_sum, ref, emit, quirk: bool = True):
+    """`emit_fields` over the mesh: the chunk's inputs (any device) cut
+    into slabs of whole tiles, K3 (its plain version on the CPU) on each
+    slab's device with that device's tables (`emit`, one per device), the
+    slab's border genotype codes handed to its neighbours as ctx. Returns
+    the chunk's packed fields on the first device, bit for bit those of
+    `emit_fields` on the whole chunk: only the chunk's own two ends stay
+    flagged for their missing context."""
+    parts = shard_positions(devices, gt_prob, max_gt, margin, off, counts2,
+                            mapq2_sum, ref)
+    ctx = _gt1_halo([(_ends(p[1]), _ends(p[4])) for p in parts])
+    bufs = [emit_fields(*p, e, quirk, c)
+            for p, e, c in zip(parts, emit, ctx)]
+    return concat_packed([(b, p[0].shape[0]) for b, p in zip(bufs, parts)],
+                         devices[0])
+
+
+def sharded_fused_ll_emit(devices, rd, starts, ori, strand, mapq, ref,
+                          n_pos: int, min_qual: int, tables, emit,
+                          quirk: bool = True, tiles=None):
+    """`pileup_device.fused_ll_emit` over the mesh. Not the TPU's design
+    (reads data-parallel, a full-width partial pileup on each chip, a psum
+    over ICI): each device takes a slab of whole tiles and only the rows
+    its tiles name (`pileup_device.slab_pileup_model`), so no pileup is
+    ever reduced across devices. Then K12 on every slab, each slab's
+    border codes copied to its neighbours as ctx, and K3 on every slab.
+    tables / emit: the f64 ModelTables and the EmitTables of each device.
+    Returns (gt_prob, max_gt, margin, off_sum, quals_u8, packed) on the
+    first device, bit for bit those of `fused_ll_emit` on one device,
+    risk bits included: the pileup's sums are integers, and every other
+    output is a per-position function of them and of the neighbours'
+    codes."""
+    from bs_call_tpu_torch.ops.kernels.pileup_device import (
+        slab_pileup_model,
+    )
+
+    outs = slab_pileup_model(devices, rd, starts, ori, strand, mapq, ref,
+                             n_pos, min_qual, tables, tiles)
+    ctx = _gt1_halo([(_ends(o[4]), _ends(o[0])) for o in outs])
+    bufs = [emit_fields(*o[3:7], o[0], o[2], o[8], e, quirk, c)
+            for o, e, c in zip(outs, emit, ctx)]
+    dev0 = devices[0]
+    model = (gather([o[j] for o in outs], dev0) for j in (3, 4, 5, 6, 7))
+    return (*model, concat_packed(
+        [(b, o[4].shape[0]) for b, o in zip(bufs, outs)], dev0))

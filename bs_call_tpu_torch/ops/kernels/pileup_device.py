@@ -5,7 +5,8 @@ on the CPU, with the emit fields (K3) after it.
 
 Counterpart of `bs_call_tpu/ops/kernels/pileup_device.py` (the pileup
 :37, `_agg_quals_f32`, `fused_pileup_call`, `fused_ll_dd`,
-`pad_read_batch`) and of `emit_device.fused_ll_emit`. The normalised read
+`sharded_fused_ll_dd` :156, `pad_read_batch`) and of
+`emit_device.fused_ll_emit`. The normalised read
 batch of a block crosses to the device once; the pileup, the quality
 rounding, the genotype model and (with the emit tier) the emit fields run
 there, and only the call planes, the uint8 quals and the packed fields
@@ -43,6 +44,7 @@ from bs_call_tpu_torch.ops.kernels.pileup_genotype_cuda import (
     pileup_genotype,
 )
 from bs_call_tpu_torch.ops.params import ModelTables
+from bs_call_tpu_torch.parallel.sharding import gather, slabs
 
 
 def device_pileup_plain(rd, starts, ori, strand, mapq, n_pos: int,
@@ -185,13 +187,17 @@ def fused_ll_f64(rd, starts, ori, strand, mapq, ref, n_pos: int,
                   tables, tiles)[2]
 
 
-def _fused(rd, starts, ori, strand, mapq, ref, n_pos, min_qual, tables,
-           tiles):
-    """(counts2, mapq2_sum, (gt_prob, max_gt, margin, off_sum, quals_u8))"""
+def _require_f64(tables: ModelTables):
     if tables.dtype != torch.float64:
         raise ValueError(
             f"the fused tier needs float64 tables: {tables.dtype}"
         )
+
+
+def _fused(rd, starts, ori, strand, mapq, ref, n_pos, min_qual, tables,
+           tiles):
+    """(counts2, mapq2_sum, (gt_prob, max_gt, margin, off_sum, quals_u8))"""
+    _require_f64(tables)
     counts2, _qual_sum, mapq2_sum, *out = _pileup_model(
         rd, starts, ori, strand, mapq, ref, n_pos, min_qual, tables, tiles
     )
@@ -211,6 +217,70 @@ def fused_ll_emit(rd, starts, ori, strand, mapq, ref, n_pos: int,
     )
     packed = emit_fields(*out[:4], counts2, mapq2_sum, ref, emit, quirk)
     return (*out, packed)
+
+
+def slab_batches(devices, rd, starts, ori, strand, mapq, ref, n_pos: int,
+                 tiles=None):
+    """K12's batch of each slab of the mesh (`parallel/sharding.py`): the
+    chunk's positions cut into `slabs` of whole tiles, one per device, and
+    for each the rows its tiles name in the tile table, their starts
+    shifted to the slab's first position, the table's rows shifted to the
+    first of them, and the slab's ref. K12 trims the bytes of a row that
+    reaches in from before the slab or out past it, as it trims them at
+    the chunk's ends, so a slab's outputs are the whole chunk's rows bit
+    for bit.
+
+    The batch may lie on any device (the engine's on the host, so that each
+    device copies only its rows); with `tiles` (the host table of
+    `tile_rows`) it is K12's batch already, without it `prepare_batch`
+    makes it on the batch's device and the table comes to the host once.
+    Returns per slab, on its device, ((rd, starts, ori, strand, mapq), ref,
+    n_pos, tiles)."""
+    if n_pos <= 0:
+        raise ValueError(f"n_pos out of range: {n_pos}")
+    if tiles is None:
+        (rd, starts, ori, strand, mapq), tiles = prepare_batch(
+            rd, starts, ori, strand, mapq, n_pos
+        )
+    if isinstance(tiles, torch.Tensor):
+        tiles = tiles.cpu().numpy()
+    out = []
+    for (lo, hi), dev in zip(slabs(n_pos, len(devices)), devices):
+        t0, t1 = lo // TILE, -(-hi // TILE)
+        r0, r1 = int(tiles[t0, 0]), int(tiles[t1 - 1, 1])
+        rows = tuple(a[r0:r1].to(dev, non_blocking=True)
+                     for a in (rd, starts - lo, ori, strand, mapq))
+        out.append((rows, ref[lo:hi].to(dev, non_blocking=True), hi - lo,
+                    torch.from_numpy(tiles[t0:t1] - r0).to(dev)))
+    return out
+
+
+def slab_pileup_model(devices, rd, starts, ori, strand, mapq, ref,
+                      n_pos: int, min_qual: int, tables, tiles=None):
+    """The fused tier's pileup and f64 model over the mesh: on each
+    device K12 (its plain version on the CPU) over its slab's batch
+    (`slab_batches`). tables: each device's f64 ModelTables. Returns per
+    slab, on its device, (counts2, qual_sum, mapq2_sum, gt_prob, max_gt,
+    margin, off_sum, quals_u8, ref)."""
+    for t in tables:
+        _require_f64(t)
+    return [(*_pileup_model(*rows, slab_ref, n, min_qual, tab, slab_tiles),
+             slab_ref)
+            for (rows, slab_ref, n, slab_tiles), tab in zip(
+                slab_batches(devices, rd, starts, ori, strand, mapq, ref,
+                             n_pos, tiles), tables)]
+
+
+def sharded_fused_ll_f64(devices, rd, starts, ori, strand, mapq, ref,
+                         n_pos: int, min_qual: int, tables, tiles=None):
+    """`fused_ll_f64` over the mesh (the counterpart of
+    `sharded_fused_ll_dd`): `slab_pileup_model`, the slabs' outputs
+    gathered on the first device. Returns (gt_prob, max_gt, margin,
+    off_sum, quals_u8), bit for bit `fused_ll_f64`'s on one device."""
+    outs = slab_pileup_model(devices, rd, starts, ori, strand, mapq, ref,
+                             n_pos, min_qual, tables, tiles)
+    return tuple(gather([o[j] for o in outs], devices[0])
+                 for j in (3, 4, 5, 6, 7))
 
 
 def tile_rows(starts, n_rows: int, n_pos: int, l_cap: int):

@@ -21,8 +21,18 @@ on the device the caller passes:
   or f32 (`--no-exact`), in chunks of `batch_positions`, in order on the
   current stream.
 
+With two or more devices (`devices`, by default every visible card when
+there are two or more: `CUDA_VISIBLE_DEVICES` chooses them), each chunk's
+positions
+are sharded over them as the JAX engine shards them over its mesh
+(`parallel/sharding.py`): the fused tier runs K12 and K3 on each slab of
+whole tiles (`sharded_fused_ll_f64`, `sharded_fused_ll_emit`), the column
+tier K2 (`sharded_call_genotypes`), and the outputs are the single
+device's bit for bit. Each device has its own tables.
+
 On a CPU device every kernel is its plain PyTorch version. There is no
-race, probe or fallback: an error on the device path propagates. The two
+race, probe or fallback: an error on the device path, the mesh's
+included, propagates. The two
 reroutes to the column tier (a chunk whose shape the fused tier does not
 take, and a chunk with more than 1% quals mismatches) stay on the same
 device and are counted in `tier_positions`.
@@ -42,34 +52,52 @@ from bs_call_tpu_torch.ops.emit_tables import emit_tables
 from bs_call_tpu_torch.ops.genotype import call_genotypes
 from bs_call_tpu_torch.ops.kernels.emit_device import (
     TIE_MARGIN,
+    sharded_fused_ll_emit,
     unpack_fields,
 )
 from bs_call_tpu_torch.ops.kernels.pileup_device import (
     fused_ll_emit,
     fused_ll_f64,
     pad_read_batch,
+    sharded_fused_ll_f64,
     tile_rows,
 )
 from bs_call_tpu_torch.ops.params import ModelParams, model_tables
 from bs_call_tpu_torch.ops.postprocess import aggregate_pileup, fisher_strand
 from bs_call_tpu_torch.output.site import SiteCall
+from bs_call_tpu_torch.parallel.sharding import (
+    make_mesh,
+    per_device,
+    sharded_call_genotypes,
+)
 from bs_call_tpu_torch.utils import env_flag
 
 TIERS = ("fused", "column", "oracle", "shape_reroute", "quals_reroute",
          "emit", "emit_risk")
 
 
+def engine_devices(device: torch.device):
+    """The engine's devices: the mesh of `device`'s kind (`make_mesh`,
+    every visible card) when it names two or more, else [device]."""
+    mesh = make_mesh(device)
+    return mesh if len(mesh) > 1 else [device]
+
+
 class TorchCallEngine:
     """Maps (counts2, qual_sum, mapq2_sum, ref) blocks to per-position
-    calls, with its device tiers on `device` (cuda or cpu)."""
+    calls, with its device tiers on `device` (cuda or cpu), or position
+    sharded over `devices` when that list names two or more (default
+    `engine_devices`)."""
 
     # extra padded positions beyond batch_positions: runner tail chunks
     # carry up to 16 overlap rows
     _FUSED_PAD = 64
 
-    def __init__(self, cfg: CallerConfig, device: torch.device):
+    def __init__(self, cfg: CallerConfig, device: torch.device,
+                 devices=None):
         self.cfg = cfg
-        self.device = device
+        self.devices = list(devices or engine_devices(device))
+        self.device = self.devices[0]
         self.tracer = None  # set by the runner for -v observability
         params = ModelParams(
             under_conv=cfg.under_conv,
@@ -77,8 +105,11 @@ class TorchCallEngine:
             ref_bias=cfg.ref_bias,
         )
         dtype = torch.float64 if cfg.exact else torch.float32
-        self._tables = model_tables(params, dtype, device)
-        self._emit_tables = emit_tables(device)
+        # one of each per device, in the order of `devices`
+        self._tables = per_device(
+            self.devices, lambda d: model_tables(params, dtype, d)
+        )
+        self._emit_tables = per_device(self.devices, emit_tables)
         self._emit_tier = env_flag("BS_CALL_EMIT_TIER", default=True)
         # positions called per tier: fused / column are the device tiers,
         # oracle the rows rescued by the scalar oracle, the *_reroute
@@ -131,20 +162,26 @@ class TorchCallEngine:
             return None
         ref_pad = np.zeros(n_pos, np.int32)
         ref_pad[:sz] = np.asarray(ref_codes, dtype=np.int32)
-        args = [self._to_device(a) for a in (*padded, ref_pad)]
-        kw = dict(n_pos=n_pos, min_qual=self.cfg.min_qual,
-                  tables=self._tables,
-                  tiles=self._to_device(
-                      tile_rows(padded[1], n_rows, n_pos, l_cap)
-                  ))
+        tiles = tile_rows(padded[1], n_rows, n_pos, l_cap)
+        if len(self.devices) > 1:
+            # each device copies its slab's rows from the host
+            args = (self.devices, *(torch.from_numpy(np.ascontiguousarray(a))
+                                    for a in (*padded, ref_pad)))
+            kw = dict(tables=self._tables, tiles=tiles)
+            model, with_emit = sharded_fused_ll_f64, sharded_fused_ll_emit
+            emit = self._emit_tables
+        else:
+            args = [self._to_device(a) for a in (*padded, ref_pad)]
+            kw = dict(tables=self._tables[0], tiles=self._to_device(tiles))
+            model, with_emit = fused_ll_f64, fused_ll_emit
+            emit = self._emit_tables[0]
+        kw.update(n_pos=n_pos, min_qual=self.cfg.min_qual)
         packed = None
         if self._emit_tier:
-            *out, packed = fused_ll_emit(
-                *args, **kw, emit=self._emit_tables,
-                quirk=self.cfg.reference_quirks,
-            )
+            *out, packed = with_emit(*args, **kw, emit=emit,
+                                     quirk=self.cfg.reference_quirks)
         else:
-            out = fused_ll_f64(*args, **kw)
+            out = model(*args, **kw)
         idx = self._to_device(covered_idx.astype(np.int64))
         gt_prob, max_gt, margin, off, dev_q = (
             t.index_select(0, idx).cpu().numpy() for t in out
@@ -189,12 +226,16 @@ class TorchCallEngine:
         bp = max(self.cfg.batch_positions, 1)
         for s in range(0, n, bp):
             e = min(s + bp, n)
-            res = call_genotypes(
-                self._to_device(counts[s:e].astype(np.int32, copy=False)),
-                self._to_device(quals[s:e].astype(np.int32, copy=False)),
-                self._to_device(ref[s:e].astype(np.int32, copy=False)),
-                self._tables,
-            )
+            args = [torch.from_numpy(np.ascontiguousarray(a[s:e], np.int32))
+                    for a in (counts, quals, ref)]
+            if len(self.devices) > 1:
+                # each device copies its slab's columns from the host
+                res = sharded_call_genotypes(self.devices, *args,
+                                             self._tables)
+            else:
+                res = call_genotypes(
+                    *(a.to(self.device) for a in args), self._tables[0]
+                )
             for dst, t in zip((gt_prob, max_gt, margin, off), res):
                 dst[s:e] = t.cpu().numpy()
         self.tier_positions["column"] += n

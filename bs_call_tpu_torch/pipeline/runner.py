@@ -34,8 +34,9 @@ from bs_call_tpu_torch.stats.meth_profile import meth_profile
 
 
 def run_caller(cfg: CallerConfig, device: torch.device, out_fileobj=None,
-               stats=None, dbsnp=None, tracer=None):
-    """Run the full pipeline with the engine on `device`. Returns
+               stats=None, dbsnp=None, tracer=None, devices=None):
+    """Run the full pipeline with the engine on `device`, or position
+    sharded over `devices` (default `engine.engine_devices`). Returns
     (stats, contig_table). The tracer, when given, also receives the
     engine's per-tier position counts as `tier_<name>` counters and the
     number of chunks the fused tier carried as `fused_chunks`."""
@@ -123,7 +124,7 @@ def run_caller(cfg: CallerConfig, device: torch.device, out_fileobj=None,
                 bcf_writer=writer,
             )
     emitter.vector = vector_emitter
-    engine = TorchCallEngine(cfg, device)
+    engine = TorchCallEngine(cfg, device, devices)
     engine.tracer = tracer
     native = _try_native(
         cfg, table, reader=reader, collect_stats=stats is not None

@@ -12,7 +12,9 @@ and g++. Phases, each of which raises on failure (exit code 1):
    PyTorch version on the card at the fused tier's shape (32,832
    positions), f64 and f32, with kernel and plain times;
 4. K3, the emit-fields kernel, against its plain version on the card at
-   32,832 positions, on two batches through the plain model on the card:
+   32,832 positions, with no ctx and with ctx known (the genotype codes
+   just outside the chunk, as a position-sharded slab gets them from its
+   neighbours), on two batches through the plain model on the card:
    (a) phase 3's inputs plus a mapq2 sum, a few rows of it at or above
    2^24 (which both must flag), and (b) a WGBS-like batch at depth 18
    (`wgbs_inputs`); then on ragged sizes (1, 2, 127, 129 and 4,097
@@ -20,7 +22,8 @@ and g++. Phases, each of which raises on failure (exit code 1):
    whose rows on the 128-row tile seams are het. Every field must be equal on
    the rows neither flags, the codes no libm reaches on every row; the
    het share, both risk counts and the number of rows whose risk bit
-   differs are printed, with kernel and plain times of both batches;
+   differs are printed, with kernel and plain times of both batches
+   (the kernel's with and without ctx);
 5. K12, the pileup and the genotype model per position tile, against its
    plain version (`device_pileup_plain` then
    `call_genotypes_pileup_plain`) on the card, in f64 and f32, at 4,096
@@ -38,7 +41,15 @@ and g++. Phases, each of which raises on failure (exit code 1):
    (a) and (b), and with a cap below n_emit (the overflow must be
    reported): n_emit and positions equal, every field as phase 4; its
    device time and the share of it spent in compaction;
-8. end to end on a 600k-read WGBS fixture (4 contigs x 1.25 Mbp, 150k
+8. the position-sharded programs (`check_mesh`) over `[cuda:0] * 2`,
+   `[cuda:0] * 4` and every card when there are several: on phase 7's
+   batches, `sharded_fused_ll_emit` and `sharded_fused_ll_f64` equal
+   `fused_ll_emit` / `fused_ll_f64` on one device exactly, every output,
+   risk bits included, with one K12 (and K3) launch a slab; then
+   `sharded_call_genotypes` (f32, f64), `sharded_ll_f64` and
+   `sharded_full_step` over `[cuda:0] * 4` equal K2 on one device, with
+   the histograms its sums; eager times;
+9. end to end on a 600k-read WGBS fixture (4 contigs x 1.25 Mbp, 150k
    reads each, seed 0, dbSNP every 503 bp): `bs_call_tpu.cli --device
    cpu` (the native host engine, the reference) in a subprocess, then
    `bs_call_tpu_torch.cli --device cuda` in this process with the emit
@@ -52,15 +63,22 @@ and g++. Phases, each of which raises on failure (exit code 1):
    (their counts come back with their stats) launched K12 and K3 once
    per chunk while the parent launched nothing. The tier-on run's
    risk-flagged share of the covered positions it carried
-   (`tier_emit_risk` / `tier_emit`) must stay at or below 2%. The walls
-   are printed beside the card.
+   (`tier_emit_risk` / `tier_emit`) must stay at or below 2%. Then the
+   engine over `[cuda:0] * 2` (each chunk in two slabs: K12 and K3
+   twice per fused chunk, risk share at most 2%), and `--num-hosts 2
+   --coordinator` as two processes on the card (gloo), whose VCFs, joined
+   by `bs_call_tpu_torch.concat`, and host 0's report must be the
+   reference's bytes, each host having launched K12 and K3. The walls
+   are printed beside the card; they carry no multi-GPU claim.
 
 The line before the last is a JSON object with one entry per kernel
 (`bound_ms` from this run's inputs: bytes over 3.35 TB/s, FP64
 operations over 34 TFLOP/s, the larger; `launches` from the main path's
 run of each: the 600k tier-on run for K12 f64 and K3, phase 6's drive
 for K12 f32, the 600k runs for K2's column entry, which is off the main
-path); the last is `{"ok": true,
+path; for K12 f64 and K3 also `launches_mesh`, of the engine over two
+slabs, and `launches_num_hosts`, both hosts' summed; K3's `ms_ctx` with
+ctx known); the last is `{"ok": true,
 "device": {...}}`. Imports nothing of JAX and nothing of `bs_call_tpu`,
 which it runs only as the reference subprocess.
 """
@@ -334,19 +352,20 @@ K3_EXACT_EVERYWHERE = ("covered", "gt1", "max_gt", "ref5", "dp1", "gl_len",
                        "cg_code", "cond_cg", "het")
 
 
-def compare_k3(torch, np, tag, args):
-    """K3 against its plain version on the same inputs: every field
-    equal on the rows neither flags (fs_hi, the Fisher log10 p beside its
-    integer fs_int, within 1e-12 relative: the same libdevice exp/log on
-    both sides), the fields of K3_EXACT_EVERYWHERE on every row. Returns
-    the unpacked fields (kernel, plain), the rows neither flags and the
-    largest fs_hi difference there."""
+def compare_k3(torch, np, tag, args, ctx=None):
+    """K3 against its plain version on the same inputs and ctx: every
+    field equal on the rows neither flags (fs_hi, the Fisher log10 p
+    beside its integer fs_int, within 1e-12 relative: the same libdevice
+    exp/log on both sides), the fields of K3_EXACT_EVERYWHERE on every
+    row; with no ctx both chunk edges flagged. Returns the unpacked fields
+    (kernel, plain), the rows neither flags and the largest fs_hi
+    difference there."""
     from bs_call_tpu_torch.ops.kernels import emit_cuda as K3
     from bs_call_tpu_torch.ops.kernels import emit_device as E
 
     n = args[0].shape[0]
-    got = K3.emit_fields_cuda(*args)
-    want = E.pack_fields(E.emit_fields_plain(*args))
+    got = K3.emit_fields_cuda(*args, True, ctx)
+    want = E.pack_fields(E.emit_fields_plain(*args, True, ctx))
     torch.cuda.synchronize()
     g = E.unpack_fields(got.cpu().numpy(), n)
     w = E.unpack_fields(want.cpu().numpy(), n)
@@ -361,19 +380,26 @@ def compare_k3(torch, np, tag, args):
     err = float(np.abs(g["fs_hi"][ok] - w["fs_hi"][ok]).max(initial=0.0))
     np.testing.assert_allclose(g["fs_hi"][ok], w["fs_hi"][ok], rtol=1e-12,
                                atol=1e-15)
-    if not (g["risk"][[0, -1]].all() and w["risk"][[0, -1]].all()):
+    if ctx is None and not (g["risk"][[0, -1]].all()
+                            and w["risk"][[0, -1]].all()):
         raise AssertionError(f"K3 {tag}: the chunk's edges not flagged")
     return g, w, ok, err
 
 
+# K3's ctx in the checks and times: a CpG pair's halves (CC, code 5; GG,
+# code 8) just before and just after the chunk
+K3_CTX = (5, 8)
+
+
 def check_k3(torch, np, dev):
-    """K3 on the two batches of `k3_batch` at N_POS, then on ragged sizes
-    and on a batch whose het rows sit on the 128-row tile seams; both
-    batches timed."""
+    """K3 on the two batches of `k3_batch` at N_POS, with no ctx and with
+    K3_CTX, then on ragged sizes and on a batch whose het rows sit on the
+    128-row tile seams; both batches timed with and without ctx."""
     from bs_call_tpu_torch.ops.kernels import emit_cuda as K3
     from bs_call_tpu_torch.ops.kernels import emit_device as E
 
     result, batches, errs = {}, {}, []
+    ctx = torch.tensor(K3_CTX, dtype=torch.int32, device=dev)
     for kind in "ab":
         args, deep = k3_batch(torch, np, dev, kind)
         batches[kind] = args
@@ -385,7 +411,18 @@ def check_k3(torch, np, dev):
         if ok.sum() < N_POS // 2:
             raise AssertionError(f"K3: only {ok.sum()} rows unflagged")
         n_diff = int((g["risk"] != w["risk"]).sum())
+        # ctx known: the edges get their CG context, flagged only for
+        # their own reasons
+        gc, wc, okc, err = compare_k3(torch, np, f"batch {kind}, ctx", args,
+                                      ctx)
+        errs.append(err)
+        edges = [(int(a["cg_code"][r]), bool(a["risk"][r])) for a in (g, gc)
+                 for r in (0, -1)]
+        if int(gc["risk"].sum()) > int(g["risk"].sum()):
+            raise AssertionError(f"K3 batch {kind}: ctx flagged more rows")
         ms = device_ms(lambda: K3.emit_fields_cuda(*args), torch)
+        ms_ctx = device_ms(lambda: K3.emit_fields_cuda(*args, True, ctx),
+                           torch)
         eager_ms = time_ms(lambda: K3.emit_fields_cuda(*args), torch)
         plain_ms = time_ms(
             lambda: E.pack_fields(E.emit_fields_plain(*args)), torch)
@@ -395,8 +432,15 @@ def check_k3(torch, np, dev):
             f"bits differ on {n_diff} rows (kernel {int(g['risk'].sum())}, "
             f"plain {int(w['risk'].sum())} flagged); kernel {ms:.4f} ms "
             f"(eager {eager_ms:.4f} ms), plain {plain_ms:.4f} ms")
+        log(f"K3 emit_fields_f64 batch {kind}, ctx {list(K3_CTX)}: every "
+            f"field equal on {okc.sum()} rows neither flags, risk bits "
+            f"differ on {int((gc['risk'] != wc['risk']).sum())} rows (kernel "
+            f"{int(gc['risk'].sum())} flagged); edges (cg code, risk) "
+            f"without ctx {edges[:2]}, with {edges[2:]}; kernel "
+            f"{ms_ctx:.4f} ms")
         sfx = "" if kind == "a" else "_wgbs"
         result.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
+                       "ms_ctx" + sfx: ms_ctx,
                        "eager_ms" + sfx: eager_ms,
                        "risk_diff_rows" + sfx: n_diff})
     # ragged sizes (the last tile short, chunks of one or two rows), a
@@ -811,13 +855,203 @@ def check_fused_emit_chunk(torch, np, dev):
     return result
 
 
+def slab_kernel_ms(torch, devs, args, mts, ets):
+    """Device ms of K12 on each slab's batch (`slab_batches`) and of K3 on
+    its outputs with its ctx, each summed over the slabs: the kernels'
+    share of a sharded call, CUDA graph replay. One device is one slab."""
+    from bs_call_tpu_torch.ops.kernels import emit_cuda as K3
+    from bs_call_tpu_torch.ops.kernels import emit_device as E
+    from bs_call_tpu_torch.ops.kernels import pileup_device as PD
+    from bs_call_tpu_torch.ops.kernels import pileup_genotype_cuda as K12
+
+    batches = PD.slab_batches(devs, *args, N_POS)
+
+    def k12(b, mt):
+        rows, ref, n, tiles = b
+        return K12.pileup_genotype(*rows, tiles, ref, n, 20, mt)
+
+    outs = [k12(b, mt) for b, mt in zip(batches, mts)]
+    ctx = E._gt1_halo([(E._ends(o[4]), E._ends(o[0])) for o in outs])
+    k12_ms = sum(device_ms(lambda b=b, mt=mt: k12(b, mt), torch)
+                 for b, mt in zip(batches, mts))
+    k3_ms = sum(device_ms(lambda o=o, r=b[1], et=et, c=c: K3.emit_fields_cuda(
+        *o[3:7], o[0], o[2], r, et, True, c), torch)
+        for o, b, et, c in zip(outs, batches, ets, ctx))
+    return k12_ms, k3_ms
+
+
+# the outputs of `fused_ll_emit`, in order
+FUSED_OUTPUTS = ("gt_prob", "max_gt", "margin", "off_sum", "quals_u8",
+                 "packed")
+
+
+def check_mesh(torch, np, dev):
+    """The position-sharded programs (`parallel/sharding.py`) over device
+    lists: `[dev] * 2` and `[dev] * 4` (slabs of whole tiles that share
+    one card) and, with more than one card, every card. On the fused
+    tier's chunk and on `wgbs_reads`, `sharded_fused_ll_emit` and
+    `sharded_fused_ll_f64` must equal `fused_ll_emit` / `fused_ll_f64` on
+    one device exactly, every output on every row, risk bits included,
+    with one K12 launch a slab (and one K3 a slab with the emit fields).
+    Then `sharded_call_genotypes` (f32, f64) and `sharded_full_step` over
+    `[dev] * 4`: equal to K2 on one device, one K2 launch a slab, and the
+    histograms equal to their single-device sums. The calls are timed
+    eager (CUDA events around them, the host's enqueue, the slabs' copies
+    and a host sync for the tile table in them), the kernels' device time
+    by `slab_kernel_ms`."""
+    from bs_call_tpu_torch.ops.emit_tables import emit_tables
+    from bs_call_tpu_torch.ops.genotype import call_genotypes
+    from bs_call_tpu_torch.ops.kernels import emit_cuda as K3
+    from bs_call_tpu_torch.ops.kernels import emit_device as E
+    from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
+    from bs_call_tpu_torch.ops.kernels import pileup_device as PD
+    from bs_call_tpu_torch.ops.kernels import pileup_genotype_cuda as K12
+    from bs_call_tpu_torch.ops.params import ModelParams, model_tables
+    from bs_call_tpu_torch.parallel import sharding as SH
+
+    meshes = {"[cuda:0] * 2": [dev] * 2, "[cuda:0] * 4": [dev] * 4}
+    if torch.cuda.device_count() > 1:
+        meshes[f"{torch.cuda.device_count()} cards"] = SH.make_mesh(dev)
+
+    def launches():
+        return K12.pileup_genotype.launches, K3.emit_fields_cuda.launches
+
+    def reset():
+        K12.pileup_genotype.launches = K3.emit_fields_cuda.launches = 0
+
+    mt = model_tables(ModelParams(), torch.float64, dev)
+    et = emit_tables(dev)
+    rng = np.random.default_rng(8)
+    batches = {"chunk": (read_batch(np, 4096, 256, N_POS, 1),
+                         rng.integers(0, 5, N_POS).astype(np.int32)),
+               "wgbs": wgbs_reads(np, N_POS, 0)}
+    result = {}
+    for kind, (b, ref) in batches.items():
+        args = [torch.from_numpy(a).to(dev) for a in (*b, ref)]
+        want = PD.fused_ll_emit(*args, N_POS, 20, mt, et)
+        want64 = PD.fused_ll_f64(*args, N_POS, 20, mt)
+        torch.cuda.synchronize()
+        n_risk = int(E.unpack_fields(want[5].cpu().numpy(), N_POS)[
+            "risk"].sum())
+        one_ms = time_ms(lambda: PD.fused_ll_emit(*args, N_POS, 20, mt, et),
+                         torch)
+        one_k12, one_k3 = slab_kernel_ms(torch, [dev], args, [mt], [et])
+        for tag, devs in meshes.items():
+            k = len(SH.slabs(N_POS, len(devs)))
+            mts = SH.per_device(
+                devs, lambda d: model_tables(ModelParams(), torch.float64, d))
+            ets = SH.per_device(devs, emit_tables)
+
+            def emit():
+                return E.sharded_fused_ll_emit(devs, *args, N_POS, 20, mts,
+                                               ets)
+
+            def model():
+                return PD.sharded_fused_ll_f64(devs, *args, N_POS, 20, mts)
+
+            reset()
+            got = emit()
+            n_emit = launches()
+            reset()
+            got64 = model()
+            n_model = launches()
+            torch.cuda.synchronize()
+            if n_emit != (k, k) or n_model != (k, 0):
+                raise AssertionError(
+                    f"mesh {tag} {kind}: (K12, K3) launches {n_emit} with "
+                    f"the emit fields, {n_model} without, for {k} slabs")
+            for name, g, w in (*zip(FUSED_OUTPUTS, got, want),
+                               *zip(FUSED_OUTPUTS, got64, want64)):
+                if g.device != dev or not torch.equal(g, w):
+                    raise AssertionError(f"mesh {tag} {kind}: {name} "
+                                         f"differs from one device's")
+            ms, ms64 = time_ms(emit, torch), time_ms(model, torch)
+            k12_ms, k3_ms = slab_kernel_ms(torch, devs, args, mts, ets)
+            log(f"mesh {tag} ({kind}): {k} slabs of "
+                f"{[hi - lo for lo, hi in SH.slabs(N_POS, len(devs))]} "
+                f"positions; (K12, K3) launches a call {n_emit} with the "
+                f"emit fields, {n_model} without; every output equal to one "
+                f"device's on all {N_POS} rows ({n_risk} risk-flagged on "
+                f"both); eager sharded_fused_ll_emit {ms:.4f} ms, "
+                f"sharded_fused_ll_f64 {ms64:.4f} ms; one device's "
+                f"fused_ll_emit {one_ms:.4f} ms; device: K12 {k12_ms:.4f} ms "
+                f"and K3 (with ctx) {k3_ms:.4f} ms summed over the slabs, "
+                f"one device's {one_k12:.4f} and {one_k3:.4f} ms")
+            result[f"{tag} {kind}"] = {"slabs": k, "ms": ms, "f64_ms": ms64,
+                                       "one_device_ms": one_ms,
+                                       "k12_ms": k12_ms, "k3_ms": k3_ms}
+    # the column tier and the calling step over four slabs
+    _c2, _qs, counts, quals, ref = (
+        torch.from_numpy(a).to(dev) for a in genotype_inputs(np, N_POS, 0))
+    cols = (counts, quals, ref)
+    devs = [dev] * 4
+    for dtype in (torch.float32, torch.float64):
+        tables = model_tables(ModelParams(), dtype, dev)
+        want = call_genotypes(*cols, tables)
+        K2.genotype_column.launches = 0
+        got = SH.sharded_call_genotypes(devs, *cols, [tables] * 4)
+        if K2.genotype_column.launches != 4:
+            raise AssertionError("sharded_call_genotypes: "
+                                 f"{K2.genotype_column.launches} K2 launches")
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"sharded_call_genotypes {dtype}: differs "
+                                 "from K2 on one device")
+        if dtype == torch.float64:
+            f64 = SH.sharded_ll_f64(devs, *cols, [tables] * 4)
+            if not all(torch.equal(g, w) for g, w in zip(f64, want)):
+                raise AssertionError("sharded_ll_f64 differs from K2")
+        full = SH.sharded_full_step(devs, *cols, [tables] * 4)
+        one = SH.sharded_full_step([dev], *cols, [tables])
+        for name, v in full.items():
+            if not torch.equal(v, one[name]):
+                raise AssertionError(f"sharded_full_step {dtype}: {name} "
+                                     "differs from one device's")
+        covered = counts.sum(dim=1) > 0
+        hist = torch.bincount(want[1][covered].long(), minlength=10)
+        if not torch.equal(full["gt_hist"].long(), hist) or int(
+                full["cov_hist"].sum()) != int(covered.sum()):
+            raise AssertionError(f"sharded_full_step {dtype}: histograms "
+                                 "differ from the single device's sums")
+        ms = time_ms(lambda: SH.sharded_call_genotypes(devs, *cols,
+                                                       [tables] * 4), torch)
+        log(f"mesh [cuda:0] * 4: sharded_call_genotypes "
+            f"{str(dtype)[6:]} and sharded_full_step equal K2 on one device, "
+            f"4 K2 launches a call, gt_hist {full['gt_hist'].tolist()}; "
+            f"eager {ms:.4f} ms")
+    return result
+
+
+# a host of a `--num-hosts` run: the CLI in its own process, its kernel
+# launches printed as the last line
+HOST_MAIN = """
+import json, sys
+from bs_call_tpu_torch import cli
+from bs_call_tpu_torch.ops.kernels import emit_cuda, pileup_genotype_cuda
+rc = cli.main(sys.argv[1:])
+print(json.dumps({"pileup_genotype": pileup_genotype_cuda.pileup_genotype
+                  .launches, "emit_fields": emit_cuda.emit_fields_cuda
+                  .launches}))
+sys.exit(rc)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def end_to_end(torch, card):
     from bs_call_tpu_torch import cli
+    from bs_call_tpu_torch import concat as concat_tool
     from bs_call_tpu_torch.native import load as native_load
     from bs_call_tpu_torch.ops.kernels import emit_cuda as K3
     from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
     from bs_call_tpu_torch.ops.kernels import pileup_genotype_cuda as K12
     from bs_call_tpu_torch.parity import strip_date
+    from bs_call_tpu_torch.pipeline import engine as engine_mod
     from bs_call_tpu_torch.utils.synth import (
         make_dbsnp_index,
         make_wgbs_fixture,
@@ -862,7 +1096,9 @@ def end_to_end(torch, card):
         out = {k: os.path.join(tmp, k) for k in (
             "host.vcf", "host.json", "port.vcf", "port.json",
             "port_off.vcf", "port_off.json", "port_shards.vcf",
-            "port_shards.json")}
+            "port_shards.json", "port_mesh.vcf", "port_mesh.json",
+            "host0.vcf", "host1.vcf", "host0.json", "host1.json",
+            "hosts.vcf")}
 
         t0 = time.perf_counter()
         subprocess.run(
@@ -877,17 +1113,21 @@ def end_to_end(torch, card):
             with open(out[k]) as f:
                 return f.read()
 
-        def port_run(tag, env, flags=()):
+        def port_run(tag, env, flags=(), devices=None):
             """One port run in this process, the launch counts reset just
             before it; the environment (BS_CALL_EMIT_TIER, read when the
             engine is built; BS_CALL_FORCE_SHARDS) is set around
-            cli.main."""
+            cli.main, and with `devices` the engine's device list (the
+            mesh `engine_devices` would give on that many cards)."""
             tracer = Tracer()
             for fn in (K2.genotype_column, K3.emit_fields_cuda,
                        K12.pileup_genotype):
                 fn.launches = 0
             before = {k: os.environ.get(k) for k in env}
             os.environ.update(env)
+            engine_devices = engine_mod.engine_devices
+            if devices:
+                engine_mod.engine_devices = lambda device: list(devices)
             try:
                 t0 = time.perf_counter()
                 rc = cli.main(
@@ -898,6 +1138,7 @@ def end_to_end(torch, card):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             finally:
+                engine_mod.engine_devices = engine_devices
                 for k, v in before.items():
                     if v is None:
                         del os.environ[k]
@@ -936,11 +1177,41 @@ def end_to_end(torch, card):
                 raise AssertionError(f"{tag}: fused tier carried nothing")
             k12 = (workers.get("pileup_genotype", 0) if workers
                    else launches["pileup_genotype_f64"])
-            if k12 != chunks:
+            slabs = len(devices) if devices else 1
+            if k12 != slabs * chunks:
                 raise AssertionError(
-                    f"{tag}: K12 not once per fused chunk ({chunks}): "
-                    f"{launches} {workers}")
+                    f"{tag}: K12 not {slabs} times per fused chunk "
+                    f"({chunks}): {launches} {workers}")
             return wall, launches, tiers, workers
+
+        def two_hosts(common, out, env):
+            """`--num-hosts 2 --coordinator` on the card: two CLI
+            processes, a gloo process group between them, each writing
+            its host{i}.vcf, host 0 the merged report. Returns the wall
+            from their start to both exits and each host's launches."""
+            port = free_port()
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", HOST_MAIN, *common,
+                 "-o", out[f"host{h}.vcf"], "--report-file",
+                 out[f"host{h}.json"], "--device", "cuda", "--num-hosts",
+                 "2", "--host-id", str(h), "--coordinator",
+                 f"127.0.0.1:{port}"],
+                cwd=HERE, env=env, stdout=subprocess.PIPE, text=True,
+            ) for h in range(2)]
+            try:
+                outs = [p.communicate(timeout=600)[0] for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            wall = time.perf_counter() - t0
+            if any(p.returncode for p in procs):
+                raise AssertionError("--num-hosts 2: exit codes "
+                                     f"{[p.returncode for p in procs]}")
+            return wall, [json.loads(o.strip().splitlines()[-1])
+                          for o in outs]
 
         total = n_ctg * n_reads
         on_s, launches, tiers, _w = port_run("port",
@@ -966,19 +1237,62 @@ def end_to_end(torch, card):
                 == workers.get("pileup_genotype", 0)):
             raise AssertionError(f"--shards 2: the parent launched "
                                  f"{sh_launches}, the workers {workers}")
+        # the engine over [cuda:0] * 2: each chunk in two slabs of whole
+        # tiles, K12 then K3 on each, the border codes crossing as ctx
+        mesh_s, mesh_launches, mesh_tiers, _w = port_run(
+            "port_mesh", {"BS_CALL_EMIT_TIER": "1"},
+            devices=[torch.device("cuda", 0)] * 2)
+        mesh_risky = mesh_tiers.get("emit_risk", 0) / max(
+            mesh_tiers.get("emit", 0), 1)
+        if (mesh_launches["emit_fields_f64"]
+                != mesh_launches["pileup_genotype_f64"]
+                or mesh_launches["pileup_genotype_f64"]
+                != 2 * launches["pileup_genotype_f64"]
+                or mesh_risky > 0.02):
+            raise AssertionError(f"mesh run: launches {mesh_launches}, "
+                                 f"tiers {mesh_tiers}")
+        hosts_s, host_launches = two_hosts(common, out, env)
+        concat_tool.main([out["host1.vcf"], out["host0.vcf"], "-o",
+                          out["hosts.vcf"]])
+        if read("hosts.vcf") != read("host.vcf"):
+            raise AssertionError("--num-hosts 2: the concatenated VCF "
+                                 "differs from bs_call_tpu --device cpu")
+        if strip_date(read("host0.json")) != strip_date(read("host.json")):
+            raise AssertionError("--num-hosts 2: host 0's report differs "
+                                 "from bs_call_tpu --device cpu")
+        if os.path.exists(out["host1.json"]) or not all(
+                h["pileup_genotype"] > 0 and h["emit_fields"] > 0
+                for h in host_launches):
+            raise AssertionError(f"--num-hosts 2: launches {host_launches}, "
+                                 "or host 1 wrote a report")
+        log(f"e2e [{card}]: port_mesh: engine over [cuda:0] * 2, K12 and K3 "
+            f"twice per fused chunk, risk share {100 * mesh_risky:.3f}%; "
+            f"--num-hosts 2 over gloo (two processes on the card): (K12, K3) "
+            f"launches per host {[tuple(h.values()) for h in host_launches]}"
+            f"; the hosts' VCFs concatenated and host 0's report equal the "
+            f"reference's bytes")
         n_rec = sum(1 for ln in read("port.vcf").splitlines()
                     if not ln.startswith("#"))
         log(f"e2e [{card}]: {total} reads, {n_rec} VCF records; VCF and "
-            f"report bytes of the three port runs equal the host's; "
+            f"report bytes of the four port runs equal the host's; "
             f"tier_emit {tiers['emit']}, tier_emit_risk "
             f"{tiers.get('emit_risk', 0)} ({100 * risky:.3f}% of them)")
         log(f"e2e [{card}]: walls: port --device cuda, emit tier on, in "
             f"this process {on_s:.3f} s ({total / on_s:.0f} reads/s); "
             f"emit tier off {off_s:.3f} s ({total / off_s:.0f} reads/s); "
             f"--shards 2 (two workers, emit tier on) {sh_s:.3f} s "
-            f"({total / sh_s:.0f} reads/s); "
+            f"({total / sh_s:.0f} reads/s); engine over [cuda:0] * 2 "
+            f"{mesh_s:.3f} s ({total / mesh_s:.0f} reads/s); --num-hosts 2 "
+            f"(two processes, from start to both exits) {hosts_s:.3f} s "
+            f"({total / hosts_s:.0f} reads/s); "
             f"host bs_call_tpu --device cpu as a subprocess {host_s:.3f} s "
             f"({total / host_s:.0f} reads/s)")
+        # this slice's paths: the engine over two slabs, the two hosts
+        for name, key in (("pileup_genotype_f64", "pileup_genotype"),
+                          ("emit_fields_f64", "emit_fields")):
+            launches[f"{name}_mesh"] = mesh_launches[name]
+            launches[f"{name}_num_hosts"] = sum(h[key]
+                                                for h in host_launches)
         return launches
     finally:
         if ref_build.poll() is None:
@@ -1022,6 +1336,7 @@ def main() -> int:
     k12 = check_k12(torch, np, dev)
     fpc, fpc_launches = check_fused_pileup_call(torch, np, dev)
     check_fused_emit_chunk(torch, np, dev)
+    check_mesh(torch, np, dev)
     launches = end_to_end(torch, card)
     for mod in ("jax", "bs_call_tpu"):
         if mod in sys.modules:
@@ -1032,7 +1347,10 @@ def main() -> int:
     kernels = [
         {"name": "pileup_genotype_f64", "route": "cuda",
          "source": src + "pileup_genotype.cu", "replaces": pallas,
-         "launches": launches["pileup_genotype_f64"], **k12},
+         "launches": launches["pileup_genotype_f64"],
+         "launches_mesh": launches["pileup_genotype_f64_mesh"],
+         "launches_num_hosts": launches["pileup_genotype_f64_num_hosts"],
+         **k12},
         {"name": "pileup_genotype_f32", "route": "cuda",
          "source": src + "pileup_genotype.cu", "replaces": pallas,
          "launches": fpc_launches["f32"], "path": "fused_pileup_call",
@@ -1044,7 +1362,9 @@ def main() -> int:
         {"name": "emit_fields_f64", "route": "cuda",
          "source": src + "emit.cu",
          "replaces": "bs_call_tpu/ops/kernels/emit_device.py:256",
-         "launches": launches["emit_fields_f64"], **k3},
+         "launches": launches["emit_fields_f64"],
+         "launches_mesh": launches["emit_fields_f64_mesh"],
+         "launches_num_hosts": launches["emit_fields_f64_num_hosts"], **k3},
     ]
     print(f"[{card}] " + "; ".join(
         f"{k['name']} kernel {k['ms']:.4f} ms plain {k['plain_ms']:.4f} ms "

@@ -3,7 +3,8 @@ on torch.device("cpu"), held to the JAX package's bytes: the golden
 fixture, the synthetic WGBS fixture against `bs_call_tpu`'s own
 run_caller in exact and `--no-exact` mode, the per-tier counters, the
 two reroutes to the column tier, and the refusals (`--device cuda`
-without a card, the paths not yet ported, any JAX import)."""
+without a card, `--num-hosts` as `bs_call_tpu.cli` refuses it, any JAX
+import)."""
 
 import io
 import os
@@ -273,19 +274,32 @@ def test_device_cuda_without_card_raises(tmp_path):
     assert not (tmp_path / "x.vcf").exists()
 
 
-@pytest.mark.parametrize("flag", [["--num-hosts", "2", "--shards", "2"],
-                                  ["--num-hosts", "2", "--host-id", "0"]])
-def test_unported_paths_refused(tmp_path, capsys, flag):
-    """--num-hosts above 1 is not ported: it exits 2 with a message that
-    names --num-hosts alone (--shards is ported, tests/test_torch_shards.
-    py), with --shards beside it too."""
+@pytest.mark.parametrize("flag, stdin, msg", [
+    (["--num-hosts", "2", "--host-id", "0", "--shards", "2"], False,
+     "mutually exclusive"),
+    (["--num-hosts", "2"], False, "requires --host-id in [0, num-hosts)"),
+    (["--num-hosts", "2", "--host-id", "0", "--no-output"], False,
+     "requires -o"),
+    (["--num-hosts", "2", "--host-id", "1"], True,
+     "cannot run from stdin"),
+])
+def test_unported_paths_refused(tmp_path, capsys, flag, stdin, msg):
+    """`--num-hosts` above 1 refuses what `bs_call_tpu.cli` refuses, with
+    its exit code 1 and its message, before it opens a device or a
+    process group: `--shards` beside it, a missing or out-of-range
+    `--host-id`, a missing -o, and input from stdin."""
+    from bs_call_tpu import cli as jax_cli
+
     cfg = golden_cfg(tmp_path)
-    rc = cli.main([cfg.input_file, "-r", cfg.reference_file, "-o",
-                   str(tmp_path / "x.vcf"), "--device", "cpu", *flag])
-    assert rc == 2
+    out = [] if "--no-output" in flag else ["-o", str(tmp_path / "x.vcf")]
+    inp = [] if stdin else [cfg.input_file]
+    argv = [*inp, "-r", cfg.reference_file, *out, "--device", "cpu",
+            *(f for f in flag if f != "--no-output")]
+    assert cli.main(argv) == 1
     err = capsys.readouterr().err
-    assert "not yet ported" in err and "--num-hosts" in err
-    assert "--shards" not in err
+    assert msg in err
+    assert jax_cli.main(argv) == 1
+    assert capsys.readouterr().err == err
     assert not (tmp_path / "x.vcf").exists()
 
 

@@ -28,6 +28,13 @@ mix, and (b) `wgbs_inputs`, WGBS-like at depth 18:
   neither the gt_prob gather nor the winner's band check runs);
 * launch: returns at once.
 
+Each K3 variant runs twice on each batch: with no ctx (the single-device
+path: both chunk edges flagged, their outer neighbours uncalled) and with
+ctx known (a position-sharded slab's: the codes of a CpG pair's two
+halves just outside the chunk, read from a device int32 [2]). A source
+from before ctx takes no such argument and ignores it, so its "ctx"
+line times the same work as its plain one.
+
 The K3 cuts are edits of lines that every version of `emit.cu` has, so
 `--src` may name another version of the source, such as a parent
 commit's unpacked with `git archive`. With several, each variant is
@@ -200,10 +207,13 @@ def main(argv=None) -> int:
             from bs_call_tpu_torch.ops.kernels import emit_device as E
 
             calls = {}
+            ctx = torch.tensor([5, 8], dtype=torch.int32, device=dev)
             for kind in "ab":
                 kargs = S.k3_batch(torch, np, dev, kind)[0]
                 calls[f" batch {kind}"] = (
                     lambda a=kargs: K.emit_fields_cuda(*a))
+                calls[f" batch {kind}, ctx"] = (
+                    lambda a=kargs: K.emit_fields_cuda(*a, True, ctx))
 
         def use(lib):
             # point the launcher at this variant's library
