@@ -1,16 +1,19 @@
-// The 10-genotype bisulfite likelihood model and its finish, as device
-// functions shared by K2 (genotype.cu, one thread per position) and K12
+// The 10-genotype bisulfite likelihood model, as device functions shared
+// by K2 (genotype.cu, a tile of positions a CTA) and K12
 // (pileup_genotype.cu, two threads per position). Same math as
 // bs_call_tpu_torch/ops/genotype.py (genotype_model.c:23-246).
 //
 // The model splits into two halves that share nothing but the inputs:
 // the C->T half (categories 5 and 7, get_Z on counts 5 and 7) and the
 // G->A half (categories 6 and 4, get_Z on counts 6 and 4), three safe logs
-// per category (`half_logs`). `accumulate` then adds every category's
-// terms to the prior in the reference's order, so one thread that
-// computes both halves (K2) and two threads that compute one half each and
-// swap them (K12) give the same bits. Each log is computed only where its
-// category count is > 0, as the reference does.
+// per category (`half_logs`). Within a half, z_j of get_Z feeds one log
+// slot of each side (`get_z1`, `side_log`). `accumulate` then adds every
+// category's terms to the prior in the reference's order, so one thread
+// that computes every log and threads that compute a part each and hand
+// them over (K12 a half by shuffles, K2 a (half, j) through shared memory)
+// give the same bits. Each log is computed only where its category count
+// is > 0, as the reference does. The finish (genotype_model.c:231-245) is
+// written out in each kernel, as its threads share it.
 //
 // Semantics kept from the reference: get_Z replaces a zero denominator
 // with 1 and clips to [-1,1]; the safe log is log(max(x, FLT_MIN or
@@ -23,19 +26,6 @@
 
 #include <cfloat>
 #include <cmath>
-
-namespace {  // each source that includes this keeps its own copy
-
-// NONINF_SEL (bs_call_tpu_torch/ops/tables.py): 2 -> ln(1+k),
-// 1 -> ln(.5+k), 0 -> ln k, for observed base A,C,G,T and each genotype
-__constant__ signed char kSel[4][10] = {
-    {2, 1, 1, 1, 0, 0, 0, 0, 0, 0},
-    {0, 1, 0, 0, 2, 1, 1, 0, 0, 0},
-    {0, 0, 1, 0, 0, 1, 0, 2, 1, 0},
-    {0, 0, 0, 1, 0, 0, 1, 0, 1, 2},
-};
-
-}  // namespace
 
 namespace bsct {
 
@@ -62,25 +52,29 @@ __device__ __forceinline__ T clip1(T x) {
   return fmin(fmax(x, T(-1)), T(1));
 }
 
-// get_Z (genotype_model.c:23-42): z[0..2] for the three (w, p) cases.
+// get_Z (genotype_model.c:23-42): z[j] for the (w, p) case j of three.
 // Constants are formed in double and rounded to T once, exactly as the
 // plain version's Python scalars are.
 template <typename T>
-__device__ __forceinline__ void get_z(T x1, T x2, T k1, T k2, double l,
-                                      double t, T z[3]) {
+__device__ __forceinline__ T get_z1(int j, T x1, T x2, T k1, T k2, double l,
+                                    double t) {
   const double lpt = l + t;
   const double lmt = l - t;
   T d = (x1 + x2) * T(lmt);
   if (d == T(0)) d = T(1);
-  const T a1[3] = {T(lpt) + T(2) * k2, T(2.0 + lpt) + T(4) * k2,
-                   T(lpt) + T(4) * k2};
-  const T a2[3] = {T(2.0 - lpt) + T(2) * k1, T(2.0 - lpt) + T(4) * k1,
-                   T(2.0 - lpt) + T(4) * k1};
+  const T a1 = j == 0   ? T(lpt) + T(2) * k2
+               : j == 1 ? T(2.0 + lpt) + T(4) * k2
+                        : T(lpt) + T(4) * k2;
+  const T a2 = j == 0 ? T(2.0 - lpt) + T(2) * k1 : T(2.0 - lpt) + T(4) * k1;
+  const T s = clip1((x1 * a1 - x2 * a2) / d);
+  return T(0.5) * (T(lmt) * s + T(2) - T(lpt));
+}
+
+template <typename T>
+__device__ __forceinline__ void get_z(T x1, T x2, T k1, T k2, double l,
+                                      double t, T z[3]) {
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const T s = clip1((x1 * a1[j] - x2 * a2[j]) / d);
-    z[j] = T(0.5) * (T(lmt) * s + T(2) - T(lpt));
-  }
+  for (int j = 0; j < 3; ++j) z[j] = get_z1(j, x1, x2, k1, k2, l, t);
 }
 
 template <typename T>
@@ -91,27 +85,38 @@ __device__ __forceinline__ void add_cat(T ll[kNG], T ni, const T coef[kNG]) {
   }
 }
 
-// One half of the methylation-informative terms. With z = get_Z(nA, nB,
-// kA, kB), a = {log(z2/2+kA), log(z0+kA), log(z1/2+kA)} when nA > 0 and
-// b = {log((1-z2)/2+kB), log(1-z0+kB), log(1-z1/2+kB)} when nB > 0.
-// The C->T half is (nA, nB) = (n5, n7), the G->A half (n6, n4): the same
-// code on other inputs, so two threads of one warp can run the two halves
-// without diverging.
+// Log `slot` of one side of a half, from the half's z[(slot + 2) % 3]
+// of get_Z(nA, nB, kA, kB) and the side's k: side 0 is
+// a = {log(z2/2+kA), log(z0+kA), log(z1/2+kA)}, side 1 is
+// b = {log((1-z2)/2+kB), log(1-z0+kB), log(1-z1/2+kB)}.
+template <typename T>
+__device__ __forceinline__ T side_log(int side, int slot, T z, T k) {
+  const T one = T(1), half = T(0.5);
+  if (side == 0) return safe_log(slot == 1 ? z + k : half * z + k);
+  return safe_log(slot == 0   ? half * (one - z) + k
+                  : slot == 1 ? one - z + k
+                              : one - half * z + k);
+}
+
+// One half of the methylation-informative terms: z = get_Z(nA, nB, kA,
+// kB), then its side a when nA > 0 and its side b when nB > 0. The C->T
+// half is (nA, nB) = (n5, n7), the G->A half (n6, n4): the same code on
+// other inputs, so two threads of one warp can run the two halves without
+// diverging.
 template <typename T>
 __device__ __forceinline__ void half_logs(T nA, T nB, T kA, T kB, double l,
                                           double t, T a[3], T b[3]) {
   T z[3];
   get_z(nA, nB, kA, kB, l, t, z);
-  const T one = T(1), half = T(0.5);
   if (nA > T(0)) {
-    a[0] = safe_log(half * z[2] + kA);
-    a[1] = safe_log(z[0] + kA);
-    a[2] = safe_log(half * z[1] + kA);
+#pragma unroll
+    for (int slot = 0; slot < 3; ++slot)
+      a[slot] = side_log(0, slot, z[(slot + 2) % 3], kA);
   }
   if (nB > T(0)) {
-    b[0] = safe_log(half * (one - z[2]) + kB);
-    b[1] = safe_log(one - z[0] + kB);
-    b[2] = safe_log(one - half * z[1] + kB);
+#pragma unroll
+    for (int slot = 0; slot < 3; ++slot)
+      b[slot] = side_log(1, slot, z[(slot + 2) % 3], kB);
   }
 }
 
@@ -137,6 +142,15 @@ __device__ __forceinline__ void accumulate(
     const T n[8], const T lnk[8], const T lnkh[8], const T lnk1[8],
     const T* prior_row, const T c5[3], const T c7[3], const T c6[3],
     const T c4[3], T ll[kNG]) {
+  // NONINF_SEL (bs_call_tpu_torch/ops/tables.py): 2 -> ln(1+k),
+  // 1 -> ln(.5+k), 0 -> ln k, for observed base A,C,G,T and each
+  // genotype; read at constant indices, so it folds into the code
+  const signed char sel[4][kNG] = {
+      {2, 1, 1, 1, 0, 0, 0, 0, 0, 0},
+      {0, 1, 0, 0, 2, 1, 1, 0, 0, 0},
+      {0, 0, 1, 0, 0, 1, 0, 2, 1, 0},
+      {0, 0, 0, 1, 0, 0, 1, 0, 1, 2},
+  };
 #pragma unroll
   for (int g = 0; g < kNG; ++g) ll[g] = prior_row[g];
 
@@ -146,7 +160,7 @@ __device__ __forceinline__ void accumulate(
     T coef[kNG];
 #pragma unroll
     for (int g = 0; g < kNG; ++g) {
-      const int s = kSel[i][g];
+      const int s = sel[i][g];
       coef[g] = s == 2 ? lnk1[i] : (s == 1 ? lnkh[i] : lnk[i]);
     }
     add_cat(ll, n[i], coef);
@@ -175,19 +189,6 @@ __device__ __forceinline__ void accumulate(
   }
 }
 
-// ll [10] for one position from counts n[8], clamped quals q[8], ref.
-template <typename T>
-__device__ __forceinline__ void model(const T n[8], const int q[8], int ref,
-                                      const T* s_tab, const T* s_prior,
-                                      double l, double t, T ll[kNG]) {
-  T k[8], lnk[8], lnkh[8], lnk1[8];
-  qual_terms(q, s_tab, k, lnk, lnkh, lnk1);
-  T c5[3], c7[3], c6[3], c4[3];
-  half_logs(n[5], n[7], k[5], k[7], l, t, c5, c7);
-  half_logs(n[6], n[4], k[6], k[4], l, t, c6, c4);
-  accumulate(n, lnk, lnkh, lnk1, s_prior + ref * kNG, c5, c7, c6, c4, ll);
-}
-
 // first-maximum argmax of ll
 template <typename T>
 __device__ __forceinline__ int argmax(const T ll[kNG], T* best) {
@@ -202,32 +203,6 @@ __device__ __forceinline__ int argmax(const T ll[kNG], T* best) {
   }
   *best = b;
   return mx;
-}
-
-// argmax / margin / off_sum / log10 posteriors (genotype_model.c:231-245)
-template <typename T>
-__device__ __forceinline__ void finish(const T ll[kNG], long long i,
-                                       T* gt_prob, int* max_gt, T* margin,
-                                       T* off_sum) {
-  T best;
-  const int mx = argmax(ll, &best);
-  T second = T(-INFINITY);
-  T off = T(0);
-#pragma unroll
-  for (int g = 0; g < kNG; ++g) {
-    if (g != mx) {
-      second = fmax(second, ll[g]);
-      off = off + mexp(ll[g] - best);
-    }
-  }
-  const T s = mlog1p(off);
-#pragma unroll
-  for (int g = 0; g < kNG; ++g) {
-    gt_prob[i * kNG + g] = (ll[g] - best - s) / T(kLn10);
-  }
-  max_gt[i] = mx;
-  margin[i] = best - second;
-  off_sum[i] = off;
 }
 
 template <typename T>

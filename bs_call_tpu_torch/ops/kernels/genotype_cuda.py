@@ -13,7 +13,9 @@ same model.
 The launcher takes CUDA tensors only, checks device, dtype, shape and
 contiguity, allocates its outputs with `torch.empty`, launches on the
 current stream without synchronising, raises if the launch reports a CUDA
-error, and counts its launches in its `launches` attribute.
+error, and counts its launches in its `launches` attribute
+(`genotype_column` also in `launches_f64` and `launches_f32`, by the
+model's dtype).
 """
 
 from __future__ import annotations
@@ -104,7 +106,13 @@ def genotype_column(counts, quals, ref, tables: ModelTables):
         )
     check_rc(rc, "genotype_column")
     genotype_column.launches += 1
+    if tables.dtype == torch.float64:
+        genotype_column.launches_f64 += 1
+    else:
+        genotype_column.launches_f32 += 1
     return out
 
 
 genotype_column.launches = 0
+genotype_column.launches_f64 = 0
+genotype_column.launches_f32 = 0

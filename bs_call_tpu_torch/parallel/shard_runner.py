@@ -285,8 +285,9 @@ def run_sharded(
     """Run the caller across n_shards worker processes on `device`
     ("cuda" or "cpu", resolved in each worker) and concatenate. Returns
     (merged_stats, per_contig_stats) when collect_stats. `tracer`, when
-    given, receives the sum of the workers' counts (their `tier_*` and
-    `fused_chunks` counters, and `launches_*`: each kernel's launches)."""
+    given, receives the sum of the workers' counts (their `tier_*`,
+    `fused_chunks` and `column_chunks` counters, and `launches_*`: each
+    kernel's launches)."""
     from bs_call_tpu_torch.io.fasta import FastaIndex
     from bs_call_tpu_torch.io.sam import open_alignment_file
 

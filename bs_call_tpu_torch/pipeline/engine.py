@@ -118,6 +118,9 @@ class TorchCallEngine:
         # emit_risk those of them flagged for the host
         self.tier_positions = dict.fromkeys(TIERS, 0)
         self.fused_chunks = 0  # chunks the fused tier carried
+        # chunks of batch_positions the column tier carried (one K2 launch
+        # each on one device, one a slab over several)
+        self.column_chunks = 0
 
     def wants_reads(self) -> bool:
         """Should the runner export per-block read batches? In exact mode
@@ -238,6 +241,7 @@ class TorchCallEngine:
                 )
             for dst, t in zip((gt_prob, max_gt, margin, off), res):
                 dst[s:e] = t.cpu().numpy()
+            self.column_chunks += 1
         self.tier_positions["column"] += n
         return self._finish_exact(
             gt_prob, max_gt, margin, off, counts, quals, ref

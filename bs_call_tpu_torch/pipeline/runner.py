@@ -39,7 +39,8 @@ def run_caller(cfg: CallerConfig, device: torch.device, out_fileobj=None,
     sharded over `devices` (default `engine.engine_devices`). Returns
     (stats, contig_table). The tracer, when given, also receives the
     engine's per-tier position counts as `tier_<name>` counters and the
-    number of chunks the fused tier carried as `fused_chunks`."""
+    number of chunks the fused and the column tiers carried as
+    `fused_chunks` and `column_chunks`."""
     from bs_call_tpu_torch.ops.genotype_native import _n_threads
     from bs_call_tpu_torch.utils.trace import Tracer
 
@@ -149,6 +150,7 @@ def run_caller(cfg: CallerConfig, device: torch.device, out_fileobj=None,
     for name, n in engine.tier_positions.items():
         tracer.count(f"tier_{name}", n)
     tracer.count("fused_chunks", engine.fused_chunks)
+    tracer.count("column_chunks", engine.column_chunks)
     tracer.report()
     return stats, table
 

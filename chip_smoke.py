@@ -9,8 +9,12 @@ and g++. Phases, each of which raises on failure (exit code 1):
 1. print the card (`nvidia-smi` name and power limit), torch and CUDA;
 2. build the CUDA kernels from `bs_call_tpu_torch/csrc` (timed);
 3. K2's column entry (the column tier, `--no-exact`) against its plain
-   PyTorch version on the card at the fused tier's shape (32,832
-   positions), f64 and f32, with kernel and plain times;
+   PyTorch version on the card, f64 and f32, on two batches of 32,832
+   positions (`column_inputs`: (a) het-rich, (b) the column tier's WGBS
+   rows), each timed (device, eager, plain), then on ragged sizes (1, 2,
+   63, 64, 65, 127, 128, 129 and 4,097 rows), rows one element into their
+   storage (K2's 4-byte staging path), all-zero rows and out-of-range
+   quals and ref;
 4. K3, the emit-fields kernel, against its plain version on the card at
    32,832 positions, with no ctx and with ctx known (the genotype codes
    just outside the chunk, as a position-sharded slab gets them from its
@@ -68,17 +72,26 @@ and g++. Phases, each of which raises on failure (exit code 1):
    twice per fused chunk, risk share at most 2%), and `--num-hosts 2
    --coordinator` as two processes on the card (gloo), whose VCFs, joined
    by `bs_call_tpu_torch.concat`, and host 0's report must be the
-   reference's bytes, each host having launched K12 and K3. The walls
-   are printed beside the card; they carry no multi-GPU claim.
+   reference's bytes, each host having launched K12 and K3. Last,
+   `--no-exact`: `bs_call_tpu.cli --no-exact --device cpu` as a
+   subprocess with JAX_PLATFORMS=cpu (the reference's f32 model on
+   XLA:CPU), then `bs_call_tpu_torch.cli --no-exact --device cuda` in this
+   process, whose VCF must pass `parity.check_no_exact` against it, with
+   the column tier carrying every position (`tier_fused` 0) and K2
+   launched in f32 once per column chunk (`column_chunks`), never in
+   f64. The walls are printed beside the card; they carry no multi-GPU
+   claim.
 
 The line before the last is a JSON object with one entry per kernel
 (`bound_ms` from this run's inputs: bytes over 3.35 TB/s, FP64
 operations over 34 TFLOP/s, the larger; `launches` from the main path's
 run of each: the 600k tier-on run for K12 f64 and K3, phase 6's drive
-for K12 f32, the 600k runs for K2's column entry, which is off the main
-path; for K12 f64 and K3 also `launches_mesh`, of the engine over two
-slabs, and `launches_num_hosts`, both hosts' summed; K3's `ms_ctx` with
-ctx known); the last is `{"ok": true,
+for K12 f32, the 600k `--no-exact` run for K2's two entries (`path`),
+each counted by its dtype in that run (its model is f32, so f64 K2 must
+not launch there); for K12 f64 and K3 also
+`launches_mesh`, of the engine over two slabs, and `launches_num_hosts`,
+both hosts' summed; K3's `ms_ctx` with ctx known; K2's and K3's
+`*_wgbs` times on their batch (b)); the last is `{"ok": true,
 "device": {...}}`. Imports nothing of JAX and nothing of `bs_call_tpu`,
 which it runs only as the reference subprocess.
 """
@@ -262,6 +275,26 @@ def wgbs_inputs(np, n, seed, depth=18):
     return counts2, qual_sum, mapq2, ref
 
 
+def column_inputs(np, kind, n=N_POS):
+    """K2's inputs, counts [n,8], quals [n,8] and ref [n], int32. kind
+    "a": `genotype_inputs` (het-rich, half the categories empty); kind
+    "b": the column tier's counterpart of `wgbs_inputs`, as the engine's
+    `_call_batch` receives it: counts2 summed over orientation, quals by
+    the f32 rounding rule (`agg_quals_f32`), the first n covered rows."""
+    if kind == "a":
+        return genotype_inputs(np, n, 0)[2:]
+    counts2, qual_sum, _mapq2, ref = wgbs_inputs(np, n + n // 4, 0)
+    counts = counts2.sum(axis=1)
+    live = counts > 0
+    avg = qual_sum / np.where(live, counts, 1).astype(np.float32)
+    quals = np.where(live, np.floor(np.float32(0.5) + avg), 0)
+    cov = np.nonzero(live.any(axis=1))[0][:n]
+    if len(cov) != n:
+        raise AssertionError(f"column_inputs: {len(cov)} covered rows")
+    return (counts[cov].astype(np.int32), quals[cov].astype(np.int32),
+            ref[cov])
+
+
 def k3_batch(torch, np, dev, kind, n=N_POS):
     """K3's inputs on the card: the plain f64 model's outputs on a batch
     of pileup planes (`call_genotypes_pileup_plain`, on the card) plus
@@ -290,59 +323,115 @@ def k3_batch(torch, np, dev, kind, n=N_POS):
     return (*model, c2, m2, r, emit_tables(dev)), deep
 
 
+def compare_model(torch, tag, got, want, dtype):
+    """The model's outputs (gt_prob, max_gt, margin, off_sum) against the
+    plain version's: max_gt equal on the rows clear of a tie, gt_prob
+    within rtol = atol = 1e-12 (f64) or 2e-5 (f32), margin and off_sum as
+    set out below. Returns (max|d gt_prob|, its share of assert_close's
+    limit)."""
+    f64 = dtype == torch.float64
+    tol, tie = (1e-12, 1e-9) if f64 else (2e-5, 1e-3)
+    gp, mx, mg, off = got
+    w_gp, w_mx, w_mg, w_off = want
+    if not torch.equal(mx[w_mg > tie], w_mx[w_mg > tie]):
+        raise AssertionError(f"{tag}: max_gt differs")
+    torch.testing.assert_close(gp, w_gp, rtol=tol, atol=tol)
+    torch.testing.assert_close(off, w_off, rtol=tol if f64 else 1e-4,
+                               atol=1e-30)
+    # margin is a difference of two log-likelihoods of up to ~10^3: in f32
+    # its rounding is one ulp of those, 6e-5
+    torch.testing.assert_close(mg, w_mg, rtol=tol, atol=tol if f64 else 2e-4)
+    if gp.numel() == 0:
+        return 0.0, 0.0
+    return (gp - w_gp).abs().max().item(), close_ratio(gp, w_gp, tol, tol)
+
+
+def one_element_in(x):
+    """A copy of x that starts one element into its storage: contiguous,
+    not 16-byte aligned."""
+    out = x.new_empty(x.numel() + 1)[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def k2_cases(torch, np, dev, cols):
+    """K2's edge cases from batch (b)'s columns: ragged sizes about its
+    32-position tiles, rows one element into their storage (the 4-byte
+    staging path), all-zero rows, and quals and ref outside their tables
+    (clamped by K2 and its plain version alike)."""
+    cases = [(f"n={m}", tuple(x[:m] for x in cols))
+             for m in (1, 2, 63, 64, 65, 127, 128, 129, 4097)]
+    for m in (129, 4097):
+        cases.append((f"n={m} unaligned",
+                      tuple(one_element_in(x[:m]) for x in cols)))
+    counts, quals, ref = (x[:4097].clone() for x in cols)
+    cases.append(("all-zero rows", (torch.zeros_like(counts),
+                                    torch.zeros_like(quals), ref)))
+    rng = np.random.default_rng(3)
+    bad = torch.from_numpy(rng.random(tuple(quals.shape)) < 0.3).to(dev)
+    wild = torch.from_numpy(
+        rng.choice([-7, -1, 44, 63, 1000], tuple(quals.shape)).astype(
+            np.int32)).to(dev)
+    ref[::3] = torch.from_numpy(rng.choice(
+        [-2, -1, 5, 9], len(ref[::3])).astype(np.int32)).to(dev)
+    cases.append(("out-of-range quals and ref",
+                  (counts, torch.where(bad, wild, quals), ref)))
+    return cases
+
+
 def check_k2(torch, np, dev):
-    """K2's column entry, f64 and f32, against its plain version."""
+    """K2's column entry, f64 and f32, against its plain version on the
+    two batches of `column_inputs` (each timed) and on `k2_cases`."""
     from bs_call_tpu_torch.ops import genotype as G
     from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
     from bs_call_tpu_torch.ops.params import ModelParams, model_tables
 
-    _c2, _qs, counts, quals, ref = (
-        torch.from_numpy(a).to(dev) for a in genotype_inputs(np, N_POS, 0)
-    )
-    args = (counts, quals, ref)
+    batches = {kind: tuple(torch.from_numpy(a).to(dev)
+                           for a in column_inputs(np, kind))
+               for kind in "ab"}
     results = {}
-    for dtype, tol, tie in ((torch.float64, 1e-12, 1e-9),
-                            (torch.float32, 2e-5, 1e-3)):
-        tables = model_tables(ModelParams(), dtype, dev)
-        got = K2.genotype_column(*args, tables)
-        want = G.call_genotypes_plain(*args, tables)
-        torch.cuda.synchronize()
-        gp, mx, mg, off = got
-        w_gp, w_mx, w_mg, w_off = want
-        clear = w_mg > tie
-        if not torch.equal(mx[clear], w_mx[clear]):
-            raise AssertionError(f"K2 column {dtype}: max_gt differs")
-        torch.testing.assert_close(gp, w_gp, rtol=tol, atol=tol)
-        torch.testing.assert_close(
-            off, w_off, rtol=tol if dtype == torch.float64 else 1e-4,
-            atol=1e-30,
-        )
-        # margin is a difference of two log-likelihoods of up to ~10^3:
-        # in f32 its rounding is one ulp of those, 6e-5
-        torch.testing.assert_close(
-            mg, w_mg, rtol=tol, atol=tol if dtype == torch.float64 else 2e-4
-        )
-        err = (gp - w_gp).abs().max().item()
-        ratio = close_ratio(gp, w_gp, tol, tol)
-        ms = device_ms(lambda: K2.genotype_column(*args, tables), torch)
-        eager_ms = time_ms(lambda: K2.genotype_column(*args, tables), torch)
-        plain_ms = time_ms(lambda: G.call_genotypes_plain(*args, tables),
-                           torch)
+    for dtype in (torch.float64, torch.float32):
         sfx = "f64" if dtype == torch.float64 else "f32"
         isz = 8 if dtype == torch.float64 else 4
-        n_in = (64 + 4) * N_POS
-        n_out = (10 * isz + 4 + 2 * isz) * N_POS
-        flops = (model_flops(np, counts.cpu().numpy())
-                 if dtype == torch.float64 else 0.0)
-        b_ms, b_by = bound(n_in + n_out, flops)
+        tables = model_tables(ModelParams(), dtype, dev)
+        res, errs = {}, []
+        for kind, args in batches.items():
+            got = K2.genotype_column(*args, tables)
+            want = G.call_genotypes_plain(*args, tables)
+            torch.cuda.synchronize()
+            err, ratio = compare_model(torch, f"K2 column {sfx} batch {kind}",
+                                       got, want, dtype)
+            errs.append(err)
+            ms = device_ms(lambda: K2.genotype_column(*args, tables), torch)
+            eager_ms = time_ms(lambda: K2.genotype_column(*args, tables),
+                               torch)
+            plain_ms = time_ms(lambda: G.call_genotypes_plain(*args, tables),
+                               torch)
+            n_in = (64 + 4) * N_POS
+            n_out = (10 * isz + 4 + 2 * isz) * N_POS
+            flops = (model_flops(np, args[0].cpu().numpy())
+                     if dtype == torch.float64 else 0.0)
+            b_ms, b_by = bound(n_in + n_out, flops)
+            key = "" if kind == "a" else "_wgbs"
+            res.update({"ms" + key: ms, "eager_ms" + key: eager_ms,
+                        "plain_ms" + key: plain_ms, "bound_ms" + key: b_ms})
+            res["bound_by"] = b_by
+            log(f"K2 genotype_column_{sfx} batch {kind}: N={N_POS} max|d "
+                f"gt_prob|={err:.3e}; assert_close at {ratio:.3f} of its "
+                f"limit; kernel {ms:.4f} ms (eager "
+                f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by})")
+        for tag, args in k2_cases(torch, np, dev, batches["b"]):
+            got = K2.genotype_column(*args, tables)
+            want = G.call_genotypes_plain(*args, tables)
+            torch.cuda.synchronize()
+            err, ratio = compare_model(torch, f"K2 column {sfx} {tag}", got,
+                                       want, dtype)
+            errs.append(err)
+            log(f"K2 genotype_column_{sfx} {tag}: max|d gt_prob|={err:.3e}, "
+                f"assert_close at {ratio:.3f} of its limit")
         results[f"genotype_column_{sfx}"] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "eager_ms": eager_ms}
-        log(f"K2 genotype_column_{sfx}: N={N_POS} max|d gt_prob|={err:.3e}; "
-            f"assert_close(rtol={tol:g}, atol={tol:g}) at {ratio:.3f} of its "
-            f"limit; kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            "max_abs_err": max(errs), **res, "library_ms": None}
     return results
 
 
@@ -451,11 +540,6 @@ def check_k3(torch, np, dev):
     cases = [(f"n={m}", tuple(x[:m] for x in b[:7]) + b[7:])
              for m in (1, 2, 127, 129, 4097)]
 
-    def one_element_in(x):
-        out = x.new_empty(x.numel() + 1)[1:].view(x.shape)
-        out.copy_(x)
-        return out
-
     cases.append(("n=129 unaligned",
                   tuple(one_element_in(x[:129]) for x in b[:7]) + b[7:]))
     seam = torch.zeros(N_POS, dtype=torch.bool, device=dev)
@@ -535,9 +619,8 @@ def check_k12(torch, np, dev):
         # f32 (off the main path) only at the shallow batch, where K2's
         # f32 tolerances hold: at depth 5,000 an f32 log-likelihood of
         # ~1e4 carries ~1e-3 of rounding
-        for dtype, tol, tie in ((torch.float64, 1e-12, 1e-9),
-                                (torch.float32, 2e-5, 1e-3))[
-                                    : 2 if case == "batch" else 1]:
+        dtypes = ((torch.float64, 1e-12), (torch.float32, 2e-5))
+        for dtype, tol in dtypes[: 2 if case == "batch" else 1]:
             tables = model_tables(ModelParams(), dtype, dev)
             got = K12.pileup_genotype(*args, tiles, ref, N_POS, 20, tables)
             c2, qs, m2 = PD.device_pileup_plain(*args, N_POS, 20)
@@ -550,19 +633,9 @@ def check_k12(torch, np, dev):
                     raise AssertionError(f"K12 {case} {dtype}: {name} differs")
             if not torch.equal(got[7], want[7]):
                 raise AssertionError(f"K12 {case} {dtype}: quals differ")
-            gp, mx, mg, off = got[3:7]
-            w_gp, w_mx, w_mg, w_off = want[3:7]
-            clear = w_mg > tie
-            if not torch.equal(mx[clear], w_mx[clear]):
-                raise AssertionError(f"K12 {case} {dtype}: max_gt differs")
             f64 = dtype == torch.float64
-            torch.testing.assert_close(gp, w_gp, rtol=tol, atol=tol)
-            torch.testing.assert_close(off, w_off, rtol=tol if f64 else 1e-4,
-                                       atol=1e-30)
-            torch.testing.assert_close(mg, w_mg, rtol=tol,
-                                       atol=tol if f64 else 2e-4)
-            err = (gp - w_gp).abs().max().item()
-            ratio = close_ratio(gp, w_gp, tol, tol)
+            err, ratio = compare_model(torch, f"K12 {case} {dtype}",
+                                       got[3:7], want[3:7], dtype)
             hot = int((got[2] >= 2.0**24).sum())
             log(f"K12 {case} {'f64' if f64 else 'f32'}: R={R} L={L} "
                 f"n_pos={N_POS} integers exact, {int(got[0].sum())} bases, "
@@ -624,24 +697,14 @@ def prep_batch(np, n_pos, seed):
 
 def check_pileup_model(torch, tag, got, want, dtype):
     """K12's outputs (gt_prob, max_gt, margin, off_sum, counts2,
-    qual_sum, mapq2_sum) against the plain version's, with phase 5's
-    tolerances. Returns (max|d gt_prob|, its share of assert_close's
-    limit)."""
-    f64 = dtype == torch.float64
-    tol, tie = (1e-12, 1e-9) if f64 else (2e-5, 1e-3)
+    qual_sum, mapq2_sum) against the plain version's: the planes equal,
+    the model as `compare_model`. Returns (max|d gt_prob|, its share of
+    assert_close's limit)."""
     for name, a, b in zip(("counts2", "qual_sum", "mapq2_sum"), got[4:],
                           want[4:]):
         if not torch.equal(a, b):
             raise AssertionError(f"{tag}: {name} differs")
-    gp, mx, mg, off = got[:4]
-    w_gp, w_mx, w_mg, w_off = want[:4]
-    if not torch.equal(mx[w_mg > tie], w_mx[w_mg > tie]):
-        raise AssertionError(f"{tag}: max_gt differs")
-    torch.testing.assert_close(gp, w_gp, rtol=tol, atol=tol)
-    torch.testing.assert_close(off, w_off, rtol=tol if f64 else 1e-4,
-                               atol=1e-30)
-    torch.testing.assert_close(mg, w_mg, rtol=tol, atol=tol if f64 else 2e-4)
-    return (gp - w_gp).abs().max().item(), close_ratio(gp, w_gp, tol, tol)
+    return compare_model(torch, tag, got[:4], want[:4], dtype)
 
 
 def check_fused_pileup_call(torch, np, dev):
@@ -1050,7 +1113,7 @@ def end_to_end(torch, card):
     from bs_call_tpu_torch.ops.kernels import emit_cuda as K3
     from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
     from bs_call_tpu_torch.ops.kernels import pileup_genotype_cuda as K12
-    from bs_call_tpu_torch.parity import strip_date
+    from bs_call_tpu_torch.parity import check_no_exact, strip_date
     from bs_call_tpu_torch.pipeline import engine as engine_mod
     from bs_call_tpu_torch.utils.synth import (
         make_dbsnp_index,
@@ -1098,7 +1161,8 @@ def end_to_end(torch, card):
             "port_off.vcf", "port_off.json", "port_shards.vcf",
             "port_shards.json", "port_mesh.vcf", "port_mesh.json",
             "host0.vcf", "host1.vcf", "host0.json", "host1.json",
-            "hosts.vcf")}
+            "hosts.vcf", "host_noexact.vcf", "host_noexact.json",
+            "port_noexact.vcf", "port_noexact.json")}
 
         t0 = time.perf_counter()
         subprocess.run(
@@ -1108,21 +1172,37 @@ def end_to_end(torch, card):
             cwd=HERE, env=env, check=True,
         )
         host_s = time.perf_counter() - t0
+        # --no-exact: the reference's f32 model on XLA:CPU, never the card
+        t0 = time.perf_counter()
+        subprocess.run(
+            [sys.executable, "-m", "bs_call_tpu.cli", *common, "--no-exact",
+             "-o", out["host_noexact.vcf"], "--report-file",
+             out["host_noexact.json"], "--device", "cpu"],
+            cwd=HERE, env={**env, "JAX_PLATFORMS": "cpu"}, check=True,
+        )
+        host_noexact_s = time.perf_counter() - t0
 
         def read(k):
             with open(out[k]) as f:
                 return f.read()
 
-        def port_run(tag, env, flags=(), devices=None):
+        def port_run(tag, env, flags=(), devices=None, exact=True):
             """One port run in this process, the launch counts reset just
             before it; the environment (BS_CALL_EMIT_TIER, read when the
             engine is built; BS_CALL_FORCE_SHARDS) is set around
             cli.main, and with `devices` the engine's device list (the
-            mesh `engine_devices` would give on that many cards)."""
+            mesh `engine_devices` would give on that many cards). Exact
+            runs must write the reference's bytes through the fused tier,
+            one K12 launch a chunk and slab; a --no-exact run (`exact`
+            false) must pass `check_no_exact` against the reference's
+            --no-exact VCF through the column tier alone, one K2 launch a
+            column chunk."""
             tracer = Tracer()
             for fn in (K2.genotype_column, K3.emit_fields_cuda,
                        K12.pileup_genotype):
                 fn.launches = 0
+            K2.genotype_column.launches_f64 = 0
+            K2.genotype_column.launches_f32 = 0
             before = {k: os.environ.get(k) for k in env}
             os.environ.update(env)
             engine_devices = engine_mod.engine_devices
@@ -1149,6 +1229,8 @@ def end_to_end(torch, card):
             launches = {
                 "pileup_genotype_f64": K12.pileup_genotype.launches,
                 "genotype_column": K2.genotype_column.launches,
+                "genotype_column_f64": K2.genotype_column.launches_f64,
+                "genotype_column_f32": K2.genotype_column.launches_f32,
                 "emit_fields_f64": K3.emit_fields_cuda.launches,
             }
             workers = {k[9:]: v for k, v in tracer.counts.items()
@@ -1162,6 +1244,26 @@ def end_to_end(torch, card):
                 + f"; positions {tracer.counts.get('positions', 0)}")
             log(f"e2e [{card}]: {tag}: stage seconds " + json.dumps(
                 {k: round(v, 3) for k, v in sorted(tracer.times.items())}))
+            if not exact:
+                n_rec = check_no_exact(read("host_noexact.vcf"),
+                                       read(f"{tag}.vcf"))
+                chunks = tracer.counts.get("column_chunks", 0)
+                if (tiers.get("column", 0) == 0 or tiers.get("fused", 0)
+                        or chunks == 0 or launches["genotype_column"] != chunks
+                        or launches["genotype_column_f32"] != chunks
+                        or launches["genotype_column_f64"]
+                        or launches["pileup_genotype_f64"]
+                        or launches["emit_fields_f64"]):
+                    raise AssertionError(
+                        f"{tag}: tiers {tiers}, {chunks} column chunks, "
+                        f"launches {launches}: not the column tier alone, "
+                        "one K2 f32 launch a chunk")
+                log(f"e2e [{card}]: {tag}: {n_rec} VCF records pass "
+                    f"check_no_exact against bs_call_tpu --no-exact --device "
+                    f"cpu; K2 launched once per column chunk ({chunks}): "
+                    f"f32 {launches['genotype_column_f32']}, f64 "
+                    f"{launches['genotype_column_f64']}")
+                return wall, launches, tiers, workers
             if read(f"{tag}.vcf") != read("host.vcf"):
                 raise AssertionError(
                     f"{tag}: VCF bytes differ from bs_call_tpu --device cpu"
@@ -1271,6 +1373,9 @@ def end_to_end(torch, card):
             f"launches per host {[tuple(h.values()) for h in host_launches]}"
             f"; the hosts' VCFs concatenated and host 0's report equal the "
             f"reference's bytes")
+        # --no-exact: the column tier, K2 in f32, on every covered position
+        ne_s, ne_launches, _tiers, _w = port_run("port_noexact", {},
+                                                 ("--no-exact",), exact=False)
         n_rec = sum(1 for ln in read("port.vcf").splitlines()
                     if not ln.startswith("#"))
         log(f"e2e [{card}]: {total} reads, {n_rec} VCF records; VCF and "
@@ -1287,12 +1392,20 @@ def end_to_end(torch, card):
             f"({total / hosts_s:.0f} reads/s); "
             f"host bs_call_tpu --device cpu as a subprocess {host_s:.3f} s "
             f"({total / host_s:.0f} reads/s)")
+        log(f"e2e [{card}]: walls, --no-exact: port --device cuda in this "
+            f"process {ne_s:.3f} s ({total / ne_s:.0f} reads/s); reference "
+            f"bs_call_tpu --no-exact --device cpu (JAX f32 on XLA:CPU) as a "
+            f"subprocess {host_noexact_s:.3f} s "
+            f"({total / host_noexact_s:.0f} reads/s)")
         # this slice's paths: the engine over two slabs, the two hosts
         for name, key in (("pileup_genotype_f64", "pileup_genotype"),
                           ("emit_fields_f64", "emit_fields")):
             launches[f"{name}_mesh"] = mesh_launches[name]
             launches[f"{name}_num_hosts"] = sum(h[key]
                                                 for h in host_launches)
+        # K2's two entries on --no-exact's path, as that run counted them
+        for name in ("genotype_column_f64", "genotype_column_f32"):
+            launches[name] = ne_launches[name]
         return launches
     finally:
         if ref_build.poll() is None:
@@ -1355,10 +1468,14 @@ def main() -> int:
          "source": src + "pileup_genotype.cu", "replaces": pallas,
          "launches": fpc_launches["f32"], "path": "fused_pileup_call",
          **fpc["f32"]},
-        *({"name": name, "route": "cuda", "source": src + "genotype.cu",
-           "replaces": pallas, "launches": launches["genotype_column"],
-           "on_main_path": False, **k2[name]}
-          for name in ("genotype_column_f64", "genotype_column_f32")),
+        {"name": "genotype_column_f64", "route": "cuda",
+         "source": src + "genotype.cu", "replaces": pallas,
+         "launches": launches["genotype_column_f64"], "path": "--no-exact",
+         **k2["genotype_column_f64"]},
+        {"name": "genotype_column_f32", "route": "cuda",
+         "source": src + "genotype.cu", "replaces": pallas,
+         "launches": launches["genotype_column_f32"], "path": "--no-exact",
+         **k2["genotype_column_f32"]},
         {"name": "emit_fields_f64", "route": "cuda",
          "source": src + "emit.cu",
          "replaces": "bs_call_tpu/ops/kernels/emit_device.py:256",

@@ -97,18 +97,59 @@ def _phase_tool():
     return mod
 
 
+# the kernel of K2's first design, one thread a position, as far as
+# `kernel_phases.k2_variants` edits it: the tool times an earlier commit's
+# source beside this checkout's
+K2_ONE_THREAD = """
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+    genotype_column_kernel(const int* __restrict__ counts,
+                           const int* __restrict__ quals,
+                           const int* __restrict__ ref, long long n,
+                           const T* __restrict__ tab,
+                           const T* __restrict__ prior, double l, double t,
+                           T* __restrict__ gt_prob, int* __restrict__ max_gt,
+                           T* __restrict__ margin, T* __restrict__ off_sum) {
+  __shared__ T s_tab[kNQ * 4];
+  __shared__ T s_prior[5 * kNG];
+  load_tables(tab, prior, s_tab, s_prior);
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  T nc[8];
+  int q[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    nc[c] = T(counts[i * 8 + c]);
+    q[c] = clamp_int(quals[i * 8 + c], 0, kNQ - 1);
+  }
+  T ll[kNG];
+  model(nc, q, clamp_int(ref[i], 0, 4), s_tab, s_prior, l, t, ll);
+  finish(ll, i, gt_prob, max_gt, margin, off_sum);
+}
+"""
+
+
+def _checkout_source(name):
+    with open(os.path.join(_build.CSRC, name)) as f:
+        return f.read()
+
+
 @pytest.mark.parametrize("kernel, source, cuts", [
     ("k12", "pileup_genotype.cu", ("pileup", "model", "launch")),
     ("k3", "emit.cu", ("no_fisher", "light", "launch")),
+    ("k2", "genotype.cu", ("model", "finish", "launch")),
+    pytest.param("k2", K2_ONE_THREAD, ("model", "finish", "launch"),
+                 id="k2-one-thread"),
 ])
 def test_phase_cuts_apply_to_the_kernel_sources(kernel, source, cuts):
     """`tools/kernel_phases.py` times a kernel cut at its phase
     boundaries by editing lines of its source: on this checkout's source
-    every cut finds its line and changes the text, and the full variant is
-    the source itself."""
+    (and on K2's one-thread design, the parent it is timed against) every
+    cut finds its line and changes the text, and the full variant is the
+    source itself."""
     tool = _phase_tool()
-    with open(os.path.join(_build.CSRC, source)) as f:
-        src = f.read()
+    src = _checkout_source(source) if source.endswith(".cu") else source
     variants = getattr(tool, f"{kernel}_variants")(src)
     assert variants["full"] == src
     assert sorted(variants) == sorted(("full", *cuts))

@@ -173,14 +173,54 @@ def test_emit_tier_reference_with_N(tmp_path, splice_hits):
     assert counts["tier_emit"] > 0 and splice_hits["n"] > 0
 
 
-def test_wgbs_no_exact_records(wgbs):
+@pytest.fixture
+def k2_calls(monkeypatch):
+    """The row counts of the engine's calls of K2's entry point, one a
+    column-tier chunk."""
+    import bs_call_tpu_torch.pipeline.engine as engine_mod
+
+    calls = []
+    orig = engine_mod.call_genotypes
+
+    def spy(counts, *args):
+        calls.append(len(counts))
+        return orig(counts, *args)
+
+    monkeypatch.setattr(engine_mod, "call_genotypes", spy)
+    return calls
+
+
+def test_wgbs_no_exact_records(wgbs, k2_calls):
     """(--no-exact) the same records at the same positions; GL within its
-    last printed digit, GQ free (the f32 contract of cli.py)."""
+    last printed digit, GQ free (the f32 contract of cli.py). The column
+    tier carried every called position, and `column_chunks` counts its
+    chunks: one call of K2's entry a chunk."""
     kw = dict(wgbs, device="cpu", exact=False)
     want_vcf, _, _ = run(jax_run_caller, CallerConfig(**kw))
     vcf, _, counts = run(run_caller, CallerConfig(**kw), CPU)
     assert check_no_exact(want_vcf.decode(), vcf.decode()) > 10_000
     assert counts["tier_column"] > 0 and counts["tier_fused"] == 0
+    assert counts["column_chunks"] == len(k2_calls) > 0
+    assert sum(k2_calls) == counts["tier_column"]
+
+
+def test_no_exact_column_chunks(tmp_path, k2_calls):
+    """--no-exact in chunks of 1,024 positions: blocks split into several
+    column-tier chunks, `column_chunks` counts every one, none is wider
+    than batch_positions, and the bytes equal a run in chunks of the
+    default size."""
+    ref, bam = random_bam(tmp_path, n_pairs=300, seed=5)
+    kw = dict(input_file=bam, reference_file=ref, benchmark_mode=True,
+              exact=False)
+    want, _, _ = run(run_caller, CallerConfig(**kw), CPU)
+    n_default = len(k2_calls)
+    k2_calls.clear()
+    vcf, _, counts = run(run_caller,
+                         CallerConfig(batch_positions=1 << 10, **kw), CPU)
+    assert vcf == want
+    assert counts["column_chunks"] == len(k2_calls) > n_default
+    assert max(k2_calls) <= 1 << 10
+    assert sum(k2_calls) == counts["tier_column"]
 
 
 def test_no_exact_check_rejects_real_differences():

@@ -212,12 +212,77 @@ def test_kernel_matches_plain_on_card(dtype):
     tables = model_tables(ModelParams(), dtype, dev)
     counts, quals, ref = make_inputs(6)
     args = [torch.from_numpy(a).to(dev) for a in (counts, quals, ref)]
-    n0 = genotype_cuda.genotype_column.launches
+    k2 = genotype_cuda.genotype_column
+    attr = "launches_f64" if dtype == torch.float64 else "launches_f32"
+    n0, d0 = k2.launches, getattr(k2, attr)
     got = G.call_genotypes(*args, tables)
-    assert genotype_cuda.genotype_column.launches == n0 + 1
+    assert (k2.launches, getattr(k2, attr)) == (n0 + 1, d0 + 1)
     want = G.call_genotypes_plain(*args, tables)
     tol = 2e-5 if dtype == torch.float32 else 1e-12
     clear = want[2] > (1e-3 if dtype == torch.float32 else 1e-9)
     assert torch.equal(got[1][clear], want[1][clear])
     torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
     torch.testing.assert_close(got[3], want[3], rtol=100 * tol, atol=1e-30)
+
+
+K2_CASES = ["n=1", "n=2", "n=63", "n=64", "n=65", "n=127", "n=128", "n=129",
+            "n=4097", "unaligned", "all-zero", "out-of-range"]
+
+
+def k2_case(case):
+    """K2's edge cases on `make_inputs` rows: ragged sizes about its
+    32-position tiles, all-zero rows, and quals and ref outside their
+    tables (K2 and its plain version clamp them). "unaligned" is 129 rows
+    that the test moves one element into their storage."""
+    counts, quals, ref = make_inputs(7, n=4352)
+    if case.startswith("n="):
+        m = int(case[2:])
+        return counts[:m], quals[:m], ref[:m]
+    if case == "unaligned":
+        return counts[:129], quals[:129], ref[:129]
+    rng = np.random.default_rng(8)
+    if case == "all-zero":
+        counts[:] = 0
+        quals[:] = 0
+    else:
+        bad = rng.random(quals.shape) < 0.3
+        quals[bad] = rng.choice([-7, -1, 44, 63, 1000], int(bad.sum()))
+        ref[::3] = rng.choice([-2, -1, 5, 9], len(ref[::3]))
+    return counts, quals, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", K2_CASES)
+def test_kernel_edge_cases_on_card(case, dtype):
+    """K2 against its plain version on the card at `chip_smoke.check_k2`'s
+    tolerances, one launch a call; "unaligned" takes K2's 4-byte staging
+    path (tensors one element into their storage)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda")
+    tables = model_tables(ModelParams(), dtype, dev)
+    args = [torch.from_numpy(a).to(dev) for a in k2_case(case)]
+    if case == "unaligned":
+        moved = []
+        for a in args:
+            b = a.new_empty(a.numel() + 1)[1:].view(a.shape)
+            b.copy_(a)
+            moved.append(b)
+        args = moved
+        assert all(a.is_contiguous() and a.data_ptr() % 16 for a in args)
+    k2 = genotype_cuda.genotype_column
+    attr = "launches_f64" if dtype == torch.float64 else "launches_f32"
+    n0, d0 = k2.launches, getattr(k2, attr)
+    got = k2(*args, tables)
+    assert (k2.launches, getattr(k2, attr)) == (n0 + 1, d0 + 1)
+    want = G.call_genotypes_plain(*args, tables)
+    f64 = dtype == torch.float64
+    tol = 1e-12 if f64 else 2e-5
+    clear = want[2] > (1e-9 if f64 else 1e-3)
+    assert torch.equal(got[1][clear], want[1][clear])
+    torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
+    torch.testing.assert_close(got[2], want[2], rtol=tol,
+                               atol=tol if f64 else 2e-4)
+    torch.testing.assert_close(got[3], want[3], rtol=tol if f64 else 1e-4,
+                               atol=1e-30)

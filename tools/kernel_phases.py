@@ -3,6 +3,7 @@
 
     python3 tools/kernel_phases.py k12
     python3 tools/kernel_phases.py k3 [--src LABEL=PATH ...]
+    python3 tools/kernel_phases.py k2 [--src LABEL=PATH ...] [--whole]
 
 Run from the root of a checkout on a machine with a CUDA device and
 nvcc. Builds one kernel source several times, each a variant cut at a
@@ -10,7 +11,7 @@ phase boundary, all nvcc runs started together, and times each with
 `chip_smoke.device_ms` (CUDA graph replay, device time only).
 
 k12, `bs_call_tpu_torch/csrc/pileup_genotype.cu`, on `chip_smoke.py`'s
-K1 batch (4,096 reads x 256 bases over 32,832 positions, f64):
+K1 batch (4,096 reads x 256 bases over 32,832 positions), f64 and f32:
 
 * full: the kernel as it ships;
 * pileup: stops after the tile's pileup planes are written;
@@ -35,14 +36,31 @@ halves just outside the chunk, read from a device int32 [2]). A source
 from before ctx takes no such argument and ignores it, so its "ctx"
 line times the same work as its plain one.
 
-The K3 cuts are edits of lines that every version of `emit.cu` has, so
-`--src` may name another version of the source, such as a parent
+k2, `bs_call_tpu_torch/csrc/genotype.cu` (the column entry), in f64 and
+f32, on `chip_smoke.column_inputs`'s two batches of 32,832 positions:
+(a) `genotype_inputs`, het-rich, half the categories empty, and (b) the
+column tier's counterpart of `wgbs_inputs` (covered rows only):
+
+* full: the kernel as it ships;
+* model: the model only, its ll written to gt_prob, no finish;
+* finish: the finish on fixed ll (i-dependent values in [-48, 0]);
+* launch: returns at once.
+
+K2's cuts know both designs of `genotype.cu`: one thread a position (the
+first) and a tile of positions a CTA.
+
+The K3 and K2 cuts are edits of lines that every version of the source
+has, so `--src` may name another version of the source, such as a parent
 commit's unpacked with `git archive`. With several, each variant is
 timed on every version in turns (A B B A), in one process on one card.
 The variants' outputs are wrong by construction; only their times are
 read. Prints one line per variant (and batch) with the card, and each
 K3 batch's het share and risk count from the first version's full
-kernel.
+kernel. For k2 and k12 with several versions it also says whether each
+version's full outputs (K2's gt_prob, max_gt, margin, off_sum; K12's
+pileup planes too) are bit-equal to the first version's, and where not,
+on how many rows and by how much. `--whole` times each version as it is,
+without the cuts: a way to compare design variants of one kernel.
 """
 
 from __future__ import annotations
@@ -105,6 +123,35 @@ def k3_variants(src: str) -> dict:
     }
 
 
+# K2's fixed ll for the finish cut, from the row index (`i` or `t0 + p`)
+_FIXED_LL = ("for (int g = 0; g < kNG; ++g) "
+             "ll[g] = T(-0.5 * (double)(({i} * 7 + g * 13) % 97));")
+
+
+def k2_variants(src: str) -> dict:
+    if "finish(ll, i, gt_prob" in src:  # one thread a position
+        model = _cut(src, re.escape(
+            "finish(ll, i, gt_prob, max_gt, margin, off_sum);"),
+            "for (int g = 0; g < kNG; ++g) gt_prob[i * kNG + g] = ll[g];")
+        finish = _cut(src, r"model\(nc, q, [^;]*;", _FIXED_LL.format(i="i"))
+    else:  # a tile of positions a CTA, the phases spread over its warps
+        acc = r"accumulate\(nc, [^;]*;"
+        model = _cut(
+            _cut(src, acc, r"\g<0>\n    for (int g = 0; g < kNG; ++g) "
+                           r"gt_prob[(t0 + p) * kNG + g] = ll[g];"),
+            r"(?=  // ---- the exponentials)", "  return;\n")
+        # no log task runs, and every ll is a fixed value
+        finish = _cut(_cut(src, acc, _FIXED_LL.format(i="(t0 + p)")),
+                      r"task < kHalfTasks;", "task < 0;")
+    return {
+        "full": src,
+        "model": model,
+        "finish": finish,
+        "launch": _cut(src, r"(genotype_column_kernel\([^)]*\)\s*\{)",
+                       r"\1\n  if (n > 0) return;"),
+    }
+
+
 def build(versions: dict, variants, tmp: str) -> dict:
     """{(label, variant): ctypes library}, one nvcc per library, all
     started together; each version's headers are the `.cuh` files beside
@@ -141,6 +188,31 @@ def build(versions: dict, variants, tmp: str) -> dict:
     return libs
 
 
+# the outputs whose bits `--src` versions are compared on, in the order
+# the launchers return them
+OUTPUTS = {
+    "k2": ("gt_prob", "max_gt", "margin", "off_sum"),
+    "k12": ("counts2", "qual_sum", "mapq2_sum", "gt_prob", "max_gt",
+            "margin", "off_sum", "quals_u8"),
+}
+
+
+def bit_diff(torch, names, got, want) -> str:
+    """Whether the outputs `got` are bit-equal to `want`'s, and where
+    not, the rows and the largest difference of each output that
+    differs."""
+    parts = []
+    for name, a, b in zip(names, got, want):
+        bits = {1: torch.int8, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        ne = a.view(bits) != b.view(bits)
+        if ne.any():
+            rows = int((ne.view(a.shape[0], -1).any(1)).sum())
+            d = (a.double() - b.double()).abs().max().item()
+            parts.append(f"{name} differs on {rows} rows (max |d| {d:.3e})")
+    return "; ".join(parts) or "bit-equal on every output"
+
+
 def in_turns(labels, lib_of, timer, use):
     """{label: [ms, ...]}: `timer` on every version, in turns A B B A
     (one version: three times)."""
@@ -154,11 +226,13 @@ def in_turns(labels, lib_of, timer, use):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=("k12", "k3"))
+    ap.add_argument("kernel", choices=("k12", "k3", "k2"))
     ap.add_argument("--src", action="append", default=[],
                     metavar="LABEL=PATH",
                     help="a version of the kernel's source (default: this "
                          "checkout's); repeat to time versions in turns")
+    ap.add_argument("--whole", action="store_true",
+                    help="time each version whole, without the phase cuts")
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
     import numpy as np
@@ -171,11 +245,16 @@ def main(argv=None) -> int:
         print("kernel_phases: no CUDA device visible to PyTorch",
               file=sys.stderr)
         return 1
-    fname = "pileup_genotype.cu" if args.kernel == "k12" else "emit.cu"
+    fname = {"k12": "pileup_genotype.cu", "k3": "emit.cu",
+             "k2": "genotype.cu"}[args.kernel]
     versions = dict(s.split("=", 1) for s in args.src) or {
         "checkout": os.path.join(CSRC, fname)}
     labels = list(versions)
-    variants = k12_variants if args.kernel == "k12" else k3_variants
+    variants = {"k12": k12_variants, "k3": k3_variants,
+                "k2": k2_variants}[args.kernel]
+    if args.whole:
+        def variants(src):
+            return {"full": src}
     dev = torch.device("cuda", 0)
     card = S.card_line()
     tmp = tempfile.mkdtemp(prefix="kernel_phases_")
@@ -199,9 +278,27 @@ def main(argv=None) -> int:
             ref = torch.from_numpy(
                 np.random.default_rng(4).integers(0, 5, n).astype(np.int32)
             ).to(dev)
-            tables = model_tables(ModelParams(), torch.float64, dev)
-            calls = {"": lambda: K.pileup_genotype(
-                *kargs, tiles, ref, n, 20, tables)}
+            calls = {}
+            for dtype in (torch.float64, torch.float32):
+                tables = model_tables(ModelParams(), dtype, dev)
+                calls[f" {str(dtype)[6:]}"] = (
+                    lambda t=tables: K.pileup_genotype(*kargs, tiles, ref, n,
+                                                       20, t))
+        elif args.kernel == "k2":
+            from bs_call_tpu_torch.ops.kernels import genotype_cuda as K
+            from bs_call_tpu_torch.ops.params import (
+                ModelParams,
+                model_tables,
+            )
+
+            calls = {}
+            for kind in "ab":
+                cols = [torch.from_numpy(a).to(dev)
+                        for a in S.column_inputs(np, kind)]
+                for dtype in (torch.float64, torch.float32):
+                    tables = model_tables(ModelParams(), dtype, dev)
+                    calls[f" {str(dtype)[6:]} batch {kind}"] = (
+                        lambda c=cols, t=tables: K.genotype_column(*c, t))
         else:
             from bs_call_tpu_torch.ops.kernels import emit_cuda as K
             from bs_call_tpu_torch.ops.kernels import emit_device as E
@@ -228,6 +325,18 @@ def main(argv=None) -> int:
                       f"{f['het'].mean():.4f} ({int(f['het'].sum())} of "
                       f"{S.N_POS}), risk {int(f['risk'].sum())} "
                       f"({labels[0]})", flush=True)
+        if args.kernel in OUTPUTS:
+            for tag, call in calls.items():
+                outs = {}
+                for label in labels:
+                    use(libs[label, "full"])
+                    outs[label] = call()
+                torch.cuda.synchronize()
+                for label in labels[1:]:
+                    print(f"[{card}] {args.kernel.upper()}{tag}: {label} "
+                          f"against {labels[0]}: " + bit_diff(
+                              torch, OUTPUTS[args.kernel], outs[label],
+                              outs[labels[0]]), flush=True)
         for name in [v for lb, v in libs if lb == labels[0]]:
             for tag, call in calls.items():
                 times = in_turns(labels, lambda lb: libs[lb, name],
