@@ -1,10 +1,13 @@
 """Command line of the PyTorch port: the flags of `bs_call_tpu.cli`, with
-`--device {cuda,cpu}` (default cuda).
+`--device {cuda,cpu,numpy}` (default cuda).
 
 `--device cuda` runs the device tiers on the GPU through the hand-written
 kernels and raises when PyTorch sees no CUDA device; `--device cpu` runs
 their plain PyTorch versions. Output bytes equal those of
 `python -m bs_call_tpu.cli --device cpu` on the same input and flags.
+`--device numpy` runs no torch device work: the Python record path and
+the host f64 model (`pipeline.engine.HostCallEngine`), the bytes of
+`bs_call_tpu.cli --device numpy`.
 `--shards N` runs N worker processes, one contig group each
 (`parallel/shard_runner.py`), every one on the named device; `--num-hosts
 N --host-id i` runs host i's contig group (`parallel/distributed.py`), and
@@ -84,7 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
         choices=list(DEVICES),
         default="cuda",
         help="cuda: device tiers on the GPU through the CUDA kernels "
-        "(raises without one); cpu: their plain PyTorch versions",
+        "(raises without one); cpu: their plain PyTorch versions; numpy: "
+        "no device, the host f64 model on every position",
     )
     p.add_argument(
         "--no-exact",

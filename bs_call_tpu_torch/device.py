@@ -2,15 +2,22 @@
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
-DEVICES = ("cuda", "cpu")
+# `--device numpy`: no torch device; the host engine
+# (`pipeline.engine.HostCallEngine`) calls every position through the
+# native f64 model
+HOST = "numpy"
+DEVICES = ("cuda", "cpu", HOST)
 
 
-def resolve_device(name: str) -> torch.device:
+def resolve_device(name: str) -> Union[torch.device, str]:
     """`cuda` -> the current CUDA device, raising when PyTorch sees none;
-    `cpu` -> the plain PyTorch versions of every kernel. There is no
-    fallback from one to the other."""
+    `cpu` -> the plain PyTorch versions of every kernel; `numpy` -> HOST,
+    the host engine with no torch device work. There is no fallback from
+    one to another."""
     if name == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -22,4 +29,6 @@ def resolve_device(name: str) -> torch.device:
         return torch.device("cuda", torch.cuda.current_device())
     if name == "cpu":
         return torch.device("cpu")
+    if name == HOST:
+        return HOST
     raise ValueError(f"unknown device {name!r}; expected one of {DEVICES}")

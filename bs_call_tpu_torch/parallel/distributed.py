@@ -289,8 +289,9 @@ def contig_universe(cfg):
     return universe
 
 
-def run_multihost(cfg, device: torch.device, num_hosts: int, host_id: int,
-                  coordinator: str | None = None, tracer=None):
+def run_multihost(cfg, device: torch.device | str, num_hosts: int,
+                  host_id: int, coordinator: str | None = None,
+                  tracer=None):
     """One host's share of a multi-host run (the reference's external
     per-contig sharding plus `bcftools concat`, made first class): call
     this host's LPT contig assignment on `device` with a uniform header,

@@ -16,7 +16,7 @@ no CUDA context, and each job carries the device's name. Every worker
 resolves it itself (`resolve_device`), so `--device cuda` raises in a
 worker that sees no card, and N workers share the one card, each with its
 own context; `--device cpu` runs the plain PyTorch versions in every
-worker. Workers start with `spawn`: a forked child of a process that
+worker, `--device numpy` the host engine. Workers start with `spawn`: a forked child of a process that
 touched CUDA cannot use it.
 """
 

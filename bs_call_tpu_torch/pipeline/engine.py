@@ -18,8 +18,12 @@ on the device the caller passes:
   off (`fused_ll_f64`) the host computes Fisher and the emit fields for
   every row;
 * column tier: host-built pileup columns go through K2, in f64 (exact)
-  or f32 (`--no-exact`), in chunks of `batch_positions`, in order on the
-  current stream.
+  or f32 (`--no-exact`), in fixed chunks of `batch_positions` (the tail
+  zero-padded) with up to three in flight (`_pipe_chunks`, the JAX
+  engine's driver). On a card each of the three slots owns pinned host
+  inputs and outputs, device inputs and an event: a chunk's H2D, K2 and
+  D2H run in order on the current stream while the host stages the next
+  chunk, and the host waits only when it drains the oldest chunk.
 
 With two or more devices (`devices`, by default every visible card when
 there are two or more: `CUDA_VISIBLE_DEVICES` chooses them), each chunk's
@@ -30,7 +34,9 @@ whole tiles (`sharded_fused_ll_f64`, `sharded_fused_ll_emit`), the column
 tier K2 (`sharded_call_genotypes`), and the outputs are the single
 device's bit for bit. Each device has its own tables.
 
-On a CPU device every kernel is its plain PyTorch version. There is no
+On a CPU device every kernel is its plain PyTorch version. `--device
+numpy` has no torch device: `HostCallEngine` calls every position through
+the host f64 model (`ops/genotype_native.py`). There is no
 race, probe or fallback: an error on the device path, the mesh's
 included, propagates. The two
 reroutes to the column tier (a chunk whose shape the fused tier does not
@@ -40,6 +46,8 @@ device and are counted in `tier_positions`.
 
 from __future__ import annotations
 
+import contextlib
+from collections import deque
 from typing import List, Optional
 
 import numpy as np
@@ -47,9 +55,10 @@ import torch
 
 from bs_call_tpu_torch.config import CallerConfig
 from bs_call_tpu_torch.constants import LOG10
-from bs_call_tpu_torch.ops import oracle
+from bs_call_tpu_torch.ops import genotype_native, oracle
 from bs_call_tpu_torch.ops.emit_tables import emit_tables
 from bs_call_tpu_torch.ops.genotype import call_genotypes
+from bs_call_tpu_torch.ops.genotype_np import call_genotypes_np
 from bs_call_tpu_torch.ops.kernels.emit_device import (
     TIE_MARGIN,
     sharded_fused_ll_emit,
@@ -81,6 +90,31 @@ def engine_devices(device: torch.device):
     every visible card) when it names two or more, else [device]."""
     mesh = make_mesh(device)
     return mesh if len(mesh) > 1 else [device]
+
+
+class _Slot:
+    """One chunk of the column tier in flight (`_pipe_chunks`): its host
+    inputs, counts and quals [bp, 8] and ref [bp] int32 (`host_in`, pinned
+    on a card; `inputs`, their numpy views). On a card also its device
+    inputs, pinned host outputs gt_prob [bp, 10], max_gt, margin and
+    off_sum [bp] in the model's dtype (`host_out`; `outputs`, their numpy
+    views), and the event of its D2H."""
+
+    def __init__(self, device: torch.device, dtype: torch.dtype, bp: int):
+        card = device.type == "cuda"
+        self.host_in = [torch.zeros(shape, dtype=torch.int32, pin_memory=card)
+                        for shape in ((bp, 8), (bp, 8), (bp,))]
+        self.inputs = [t.numpy() for t in self.host_in]
+        if card:
+            self.dev_in = [torch.empty_like(t, device=device)
+                           for t in self.host_in]
+            self.host_out = [
+                torch.empty(shape, dtype=dt, pin_memory=True)
+                for shape, dt in (((bp, 10), dtype), ((bp,), torch.int32),
+                                  ((bp,), dtype), ((bp,), dtype))
+            ]
+            self.outputs = [t.numpy() for t in self.host_out]
+            self.done = torch.cuda.Event()
 
 
 class TorchCallEngine:
@@ -121,6 +155,7 @@ class TorchCallEngine:
         # chunks of batch_positions the column tier carried (one K2 launch
         # each on one device, one a slab over several)
         self.column_chunks = 0
+        self._slots = []  # the column tier's chunk slots (`_column_slots`)
 
     def wants_reads(self) -> bool:
         """Should the runner export per-block read batches? In exact mode
@@ -218,34 +253,123 @@ class TorchCallEngine:
             self.tracer.progress(f"fused tier -> column tier ({detail})")
 
     def _call_batch(self, counts, quals, ref):
-        """Column tier: K2 over `batch_positions`-sized chunks. Returns
-        (gt_prob [N,10] f64, max_gt [N], margin [N] f64, off_sum [N] f64)
-        after `_finish_exact`."""
-        n = len(ref)
-        gt_prob = np.empty((n, 10), dtype=np.float64)
-        max_gt = np.empty(n, dtype=np.int32)
-        margin = np.empty(n, dtype=np.float64)
-        off = np.empty(n, dtype=np.float64)
-        bp = max(self.cfg.batch_positions, 1)
-        for s in range(0, n, bp):
-            e = min(s + bp, n)
-            args = [torch.from_numpy(np.ascontiguousarray(a[s:e], np.int32))
-                    for a in (counts, quals, ref)]
-            if len(self.devices) > 1:
-                # each device copies its slab's columns from the host
-                res = sharded_call_genotypes(self.devices, *args,
-                                             self._tables)
+        """Column tier: K2 over fixed chunks of `batch_positions`
+        (`_pipe_chunks`). Returns (gt_prob [N,10] f64, max_gt [N], margin
+        [N] f64, off_sum [N] f64) after `_finish_exact`."""
+        res = self._pipe_chunks(counts, quals, ref, *self._column_fns())
+        self.tier_positions["column"] += len(ref)
+        return self._finish_exact(*res, counts, quals, ref)
+
+    # column-tier chunks in flight at once
+    WINDOW = 3
+
+    def _column_slots(self, window: int) -> List[_Slot]:
+        """`window` chunk slots, allocated on first use and kept for the
+        engine's life (its model has one dtype)."""
+        if len(self._slots) != window:
+            bp = max(self.cfg.batch_positions, 1)
+            dtype = self._tables[0].dtype
+            self._slots = [_Slot(self.device, dtype, bp)
+                           for _ in range(window)]
+        return self._slots
+
+    def _column_fns(self):
+        """(dispatch, finish) of K2 on the engine's devices, for
+        `_pipe_chunks`. On the CPU a chunk is computed when dispatched.
+        On one card the H2D into the slot's device inputs, K2 and the D2H
+        into its pinned outputs are queued in order on the current stream
+        (one stream: a copy stream of its own for the H2D measured no
+        faster, `chip_smoke.check_column_pipeline`), so every tensor is
+        allocated and read on one stream. Over several devices
+        `sharded_call_genotypes` copies each slab from the slot's pinned
+        inputs, and the D2H leaves the first device. `finish` waits for
+        the slot's event."""
+        devices, tables = self.devices, self._tables
+
+        def k2(*args):
+            if len(devices) > 1:
+                return sharded_call_genotypes(devices, *args, tables)
+            return call_genotypes(*args, tables[0])
+
+        if self.device.type != "cuda":
+            def dispatch(slot):
+                return k2(*(torch.from_numpy(a) for a in slot.inputs))
+
+            def finish(res):
+                return [t.numpy() for t in res]
+
+            return dispatch, finish
+
+        dev = self.device
+
+        def dispatch(slot):
+            if len(devices) > 1:
+                res = k2(*slot.host_in)
             else:
-                res = call_genotypes(
-                    *(a.to(self.device) for a in args), self._tables[0]
-                )
-            for dst, t in zip((gt_prob, max_gt, margin, off), res):
-                dst[s:e] = t.cpu().numpy()
-            self.column_chunks += 1
-        self.tier_positions["column"] += n
-        return self._finish_exact(
-            gt_prob, max_gt, margin, off, counts, quals, ref
-        )
+                # the slot's last chunk was drained: its K2 has read dev_in
+                for d, h in zip(slot.dev_in, slot.host_in):
+                    d.copy_(h, non_blocking=True)
+                res = k2(*slot.dev_in)
+            for h, t in zip(slot.host_out, res):
+                h.copy_(t, non_blocking=True)
+            slot.done.record(torch.cuda.current_stream(dev))
+            return slot
+
+        def finish(slot):
+            slot.done.synchronize()
+            return slot.outputs
+
+        return dispatch, finish
+
+    def _pipe_chunks(self, counts, quals, ref, dispatch, finish,
+                     window: int = WINDOW):
+        """The column tier's chunk driver, the JAX engine's `_pipe_chunks`
+        in PyTorch's idiom: fixed chunks of `batch_positions`, the tail
+        zero-padded, staged in turn into the host inputs of `window`
+        slots (`_column_slots`). `dispatch(slot)` starts a chunk and
+        returns what `finish` takes; `finish(token)` waits for it and
+        returns its (gt_prob, max_gt, margin, off_sum), batch_positions
+        rows each. Up to `window` chunks are in flight: the oldest is
+        drained (finished, its unpadded rows copied out) before its slot
+        is staged again, so chunks drain in the order they were
+        dispatched and the drain is the only wait. An error drains the
+        chunks still in flight, dropping their results, and propagates.
+        Returns gt_prob [n,10] f64, max_gt [n] int32, margin [n] f64,
+        off_sum [n] f64."""
+        bp = max(self.cfg.batch_positions, 1)
+        n = len(ref)
+        out = (np.empty((n, 10)), np.empty(n, np.int32), np.empty(n),
+               np.empty(n))
+        slots = self._column_slots(window)
+        inflight = deque()
+
+        def drain():
+            s, e, token = inflight.popleft()
+            for dst, src in zip(out, finish(token)):
+                dst[s:e] = src[: e - s]
+
+        try:
+            for k, s in enumerate(range(0, n, bp)):
+                if len(inflight) == window:
+                    drain()
+                e = min(s + bp, n)
+                slot = slots[k % window]
+                for buf, a in zip(slot.inputs, (counts, quals, ref)):
+                    buf[: e - s] = a[s:e]
+                    buf[e - s:] = 0
+                inflight.append((s, e, dispatch(slot)))
+                self.column_chunks += 1
+            while inflight:
+                drain()
+        except BaseException:
+            # the chunks in flight still read and write their slots'
+            # buffers: wait for them before any slot is staged again; the
+            # first error is the one that propagates
+            for _s, _e, token in inflight:
+                with contextlib.suppress(Exception):
+                    finish(token)
+            raise
+        return out
 
     def _finish_exact(self, gt_prob, max_gt, margin, off, counts, quals,
                       ref):
@@ -358,6 +482,39 @@ class TorchCallEngine:
         return soa_to_calls(self.call_block_soa(
             counts2, qual_sum, mapq2_sum, ref_codes, agg=agg
         ))
+
+
+class HostCallEngine(TorchCallEngine):
+    """`--device numpy`: the engine without a torch device, as
+    `bs_call_tpu`'s engine runs under `--device numpy`. Every covered
+    position goes through the host f64 model, exact or not
+    (`genotype_native.native_model`, or `call_genotypes_np` under
+    BS_CALL_PY_MODEL=1), then `_finish_exact`; no fused tier, emit tier or
+    read export, and no tier counts. Raises at construction when the
+    native library does not load (the JAX engine falls back to numpy
+    there)."""
+
+    def __init__(self, cfg: CallerConfig):
+        self.cfg = cfg
+        self.devices = []
+        self.tracer = None
+        self.tier_positions = dict.fromkeys(TIERS, 0)
+        self.fused_chunks = self.column_chunks = 0
+        self._model = genotype_native.native_model(
+            cfg.under_conv, cfg.over_conv, cfg.ref_bias
+        )
+
+    def wants_reads(self) -> bool:
+        return False
+
+    def _call_batch(self, counts, quals, ref):
+        cfg = self.cfg
+        if self._model is not None:
+            res = self._model.call(counts, quals, ref)
+        else:
+            res = call_genotypes_np(counts, quals, ref, cfg.under_conv,
+                                    cfg.over_conv, cfg.ref_bias)
+        return self._finish_exact(*res, counts, quals, ref)
 
 
 def soa_to_calls(soa) -> List[Optional[SiteCall]]:

@@ -18,6 +18,7 @@ import torch
 
 from bs_call_tpu_torch import constants as C
 from bs_call_tpu_torch.config import CallerConfig
+from bs_call_tpu_torch.device import HOST
 from bs_call_tpu_torch.io.fasta import FastaIndex, sequence_window
 from bs_call_tpu_torch.io.sam import open_alignment_file
 from bs_call_tpu_torch.ops.pileup import build_pileup
@@ -28,15 +29,22 @@ from bs_call_tpu_torch.output.vcf_writer import (
 )
 from bs_call_tpu_torch.pipeline.blocks import read_blocks
 from bs_call_tpu_torch.pipeline.contigs import reconcile_contigs
-from bs_call_tpu_torch.pipeline.engine import TorchCallEngine, soa_to_calls
+from bs_call_tpu_torch.pipeline.engine import (
+    HostCallEngine,
+    TorchCallEngine,
+    soa_to_calls,
+)
 from bs_call_tpu_torch.pipeline.template import process_template
 from bs_call_tpu_torch.stats.meth_profile import meth_profile
 
 
-def run_caller(cfg: CallerConfig, device: torch.device, out_fileobj=None,
-               stats=None, dbsnp=None, tracer=None, devices=None):
+def run_caller(cfg: CallerConfig, device: torch.device | str,
+               out_fileobj=None, stats=None, dbsnp=None, tracer=None,
+               devices=None):
     """Run the full pipeline with the engine on `device`, or position
-    sharded over `devices` (default `engine.engine_devices`). Returns
+    sharded over `devices` (default `engine.engine_devices`); with
+    `device` HOST (`--device numpy`), the host engine on the Python record
+    path, as `bs_call_tpu --device numpy` runs. Returns
     (stats, contig_table). The tracer, when given, also receives the
     engine's per-tier position counts as `tier_<name>` counters and the
     number of chunks the fused and the column tiers carried as
@@ -69,6 +77,10 @@ def run_caller(cfg: CallerConfig, device: torch.device, out_fileobj=None,
 
         dbsnp = DbSnpIndex(cfg.dbsnp_file)
 
+    # before the output opens: an engine that cannot start leaves no file
+    engine = (HostCallEngine(cfg) if device == HOST
+              else TorchCallEngine(cfg, device, devices))
+    engine.tracer = tracer
     close_out = False
     if out_fileobj is None:
         if cfg.output_file:
@@ -125,9 +137,7 @@ def run_caller(cfg: CallerConfig, device: torch.device, out_fileobj=None,
                 bcf_writer=writer,
             )
     emitter.vector = vector_emitter
-    engine = TorchCallEngine(cfg, device, devices)
-    engine.tracer = tracer
-    native = _try_native(
+    native = None if device == HOST else _try_native(
         cfg, table, reader=reader, collect_stats=stats is not None
     )
     if native is not None:

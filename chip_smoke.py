@@ -15,6 +15,13 @@ and g++. Phases, each of which raises on failure (exit code 1):
    63, 64, 65, 127, 128, 129 and 4,097 rows), rows one element into their
    storage (K2's 4-byte staging path), all-zero rows and out-of-range
    quals and ref;
+3b. the column tier's chunk pipeline (`check_column_pipeline`): 180,000
+   WGBS rows through `TorchCallEngine._pipe_chunks` (six chunks of
+   32,768, up to three in flight, pinned slots, one stream), f32 and f64,
+   bit-equal to K2 a chunk at a time with a blocking copy out, within
+   K2's tolerances of the plain version, one K2 launch a chunk; timed in
+   turns with it and with the H2D on a copy stream (two streams), as host
+   wall ms a call;
 4. K3, the emit-fields kernel, against its plain version on the card at
    32,832 positions, with no ctx and with ctx known (the genotype codes
    just outside the chunk, as a position-sharded slab gets them from its
@@ -79,16 +86,24 @@ and g++. Phases, each of which raises on failure (exit code 1):
    process, whose VCF must pass `parity.check_no_exact` against it, with
    the column tier carrying every position (`tier_fused` 0) and K2
    launched in f32 once per column chunk (`column_chunks`), never in
-   f64. The walls are printed beside the card; they carry no multi-GPU
-   claim.
+   f64. Then partial `-C` regions (one of 40,000 positions a contig,
+   each a block wider than the fused tier takes, two column chunks), the
+   fixture linked into a directory of its own with its `.bai` (which a
+   partial `-C` run builds), the reference's two runs beside the
+   port's: `--device cuda -C` against `bs_call_tpu -C --device cpu`, VCF
+   and report bytes equal, with shape reroutes and K2 launched in f64
+   once per column chunk; `--no-exact -C` against `bs_call_tpu -C
+   --no-exact` with `check_no_exact`, K2 in f32 once per column chunk.
+   The walls are printed beside the card; they carry no multi-GPU claim.
 
 The line before the last is a JSON object with one entry per kernel
 (`bound_ms` from this run's inputs: bytes over 3.35 TB/s, FP64
 operations over 34 TFLOP/s, the larger; `launches` from the main path's
 run of each: the 600k tier-on run for K12 f64 and K3, phase 6's drive
-for K12 f32, the 600k `--no-exact` run for K2's two entries (`path`),
-each counted by its dtype in that run (its model is f32, so f64 K2 must
-not launch there); for K12 f64 and K3 also
+for K12 f32, the partial `-C` exact run for K2 f64 and the 600k
+`--no-exact` run for K2 f32 (`path`; `launches_partial` that of the
+partial `-C --no-exact` run), each counted by its dtype; for K12 f64 and
+K3 also
 `launches_mesh`, of the engine over two slabs, and `launches_num_hosts`,
 both hosts' summed; K3's `ms_ctx` with ctx known; K2's and K3's
 `*_wgbs` times on their batch (b)); the last is `{"ok": true,
@@ -108,6 +123,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_POS = (1 << 15) + 64  # engine batch_positions + _FUSED_PAD
+# the partial -C region of each contig of the 600k fixture, 0-based
+# half-open: two chunks of the column tier each, the second ragged (a
+# partial region takes the scalar emitter, 50-80 us a position on the
+# host, so the regions are cut to keep the script's time)
+REGION = (100_000, 140_000)
 TIMED_ITERS = 50
 
 
@@ -433,6 +453,116 @@ def check_k2(torch, np, dev):
         results[f"genotype_column_{sfx}"] = {
             "max_abs_err": max(errs), **res, "library_ms": None}
     return results
+
+
+def check_column_pipeline(torch, np, dev, card):
+    """The column tier's chunk pipeline (`TorchCallEngine._pipe_chunks`)
+    on the card, f32 and f64: 180,000 of `column_inputs`' WGBS rows at
+    batch_positions 32,768 (five chunks and a ragged sixth), pipelined,
+    against a sequential run of K2 a chunk at a time with a blocking copy
+    out (each chunk zero-padded as the pipeline pads it), bit for bit, and
+    against the plain version within `check_k2`'s tolerances; K2's
+    launches by dtype equal the chunks and `column_chunks`. Both paths,
+    and the driver with each chunk's H2D on a copy stream of its own (two
+    streams, the design the engine did not keep), are timed in turns, five
+    samples each, as host wall ms a call."""
+    from bs_call_tpu_torch.config import CallerConfig
+    from bs_call_tpu_torch.ops import genotype as G
+    from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
+    from bs_call_tpu_torch.pipeline.engine import TorchCallEngine
+
+    n = 180_000
+    cols = column_inputs(np, "b", n)
+    for dtype in (torch.float32, torch.float64):
+        sfx = "f64" if dtype == torch.float64 else "f32"
+        eng = TorchCallEngine(CallerConfig(exact=dtype == torch.float64),
+                              dev)
+        bp = eng.cfg.batch_positions
+        tables = eng._tables[0]
+
+        def pipelined():
+            return eng._pipe_chunks(*cols, *eng._column_fns())
+
+        def sequential():
+            outs = [[], [], [], []]
+            for s in range(0, n, bp):
+                m = min(bp, n - s)
+                args = []
+                for a in cols:
+                    pad = np.zeros((bp, *a.shape[1:]), np.int32)
+                    pad[:m] = a[s:s + m]
+                    args.append(torch.from_numpy(pad).to(dev))
+                for acc, t in zip(outs, K2.genotype_column(*args, tables)):
+                    acc.append(t.cpu().numpy()[:m])
+            return [np.concatenate(o) for o in outs]
+
+        K2.genotype_column.launches_f32 = K2.genotype_column.launches_f64 = 0
+        got = pipelined()
+        launches = getattr(K2.genotype_column, f"launches_{sfx}")
+        chunks = -(-n // bp)
+        if not launches == eng.column_chunks == chunks:
+            raise AssertionError(
+                f"column pipeline {sfx}: {launches} K2 launches, "
+                f"{eng.column_chunks} column chunks, {chunks} chunks")
+        want = sequential()
+        for name, g, w in zip(("gt_prob", "max_gt", "margin", "off_sum"),
+                              got, want):
+            if not np.array_equal(g, w.astype(g.dtype)):
+                raise AssertionError(f"column pipeline {sfx}: {name} differs "
+                                     "from the sequential run")
+        plain = G.call_genotypes_plain(
+            *(torch.from_numpy(a).to(dev) for a in cols), tables)
+        err, ratio = compare_model(
+            torch, f"column pipeline {sfx}",
+            [torch.from_numpy(g).to(dev, t.dtype) for g, t in zip(got, plain)],
+            plain, dtype)
+        # the two-stream design, for the record: the same driver with each
+        # chunk's H2D on a copy stream and K2 and the D2H on the current
+        # stream after the H2D's event (the engine queues all three on the
+        # current stream)
+        two = TorchCallEngine(CallerConfig(exact=dtype == torch.float64),
+                              dev)
+        copy = torch.cuda.Stream(dev)
+        copied = {}  # id(slot) -> the event of its H2D
+
+        def two_dispatch(slot):
+            compute = torch.cuda.current_stream(dev)
+            ev = copied.setdefault(id(slot), torch.cuda.Event())
+            with torch.cuda.stream(copy):
+                for d, h in zip(slot.dev_in, slot.host_in):
+                    d.copy_(h, non_blocking=True)
+                ev.record(copy)
+            compute.wait_event(ev)
+            for h, t in zip(slot.host_out,
+                            G.call_genotypes(*slot.dev_in, two._tables[0])):
+                h.copy_(t, non_blocking=True)
+            slot.done.record(compute)
+            return slot
+
+        two_finish = two._column_fns()[1]
+
+        def two_streams():
+            return two._pipe_chunks(*cols, two_dispatch, two_finish)
+
+        if not all(np.array_equal(a, b) for a, b in zip(two_streams(), got)):
+            raise AssertionError(f"column pipeline {sfx}: two streams differ")
+        fns = {"sequential": sequential, "pipelined": pipelined,
+               "two_streams": two_streams}
+        times = {tag: [] for tag in fns}
+        tags = list(fns)
+        for i in range(5):
+            for tag in tags[i % 3:] + tags[:i % 3]:
+                t0 = time.perf_counter()
+                fns[tag]()
+                times[tag].append(1e3 * (time.perf_counter() - t0))
+        log(f"[{card}] column pipeline {sfx}: {n} rows in {chunks} chunks of "
+            f"{bp}: bit-equal to K2 a chunk at a time, {launches} K2 "
+            f"launches = column_chunks; max|d gt_prob| against the plain "
+            f"version {err:.3e} (assert_close at {ratio:.3f} of its limit); "
+            f"host wall ms a call, in turns: pipelined (one stream) "
+            f"{[round(t, 3) for t in times['pipelined']]}, two streams (H2D "
+            f"on a copy stream) {[round(t, 3) for t in times['two_streams']]}"
+            f", sequential {[round(t, 3) for t in times['sequential']]}")
 
 
 # K3's fields that no libm reaches: equal to the plain version's on every
@@ -1109,6 +1239,7 @@ def free_port() -> int:
 def end_to_end(torch, card):
     from bs_call_tpu_torch import cli
     from bs_call_tpu_torch import concat as concat_tool
+    from bs_call_tpu_torch.io.bai import write_bai
     from bs_call_tpu_torch.native import load as native_load
     from bs_call_tpu_torch.ops.kernels import emit_cuda as K3
     from bs_call_tpu_torch.ops.kernels import genotype_cuda as K2
@@ -1132,6 +1263,9 @@ def end_to_end(torch, card):
         [sys.executable, "-c", "import sys; from bs_call_tpu.native import "
          "load; sys.exit(load() is None)"], cwd=HERE, env=env,
     )
+    # the reference's partial -C runs, started beside the port's (see the
+    # partial runs below): tag -> (process, start), and their walls
+    pending, host_partial_s = {}, {}
     tmp = tempfile.mkdtemp(prefix="bsct_smoke_")
     try:
         t0 = time.perf_counter()
@@ -1162,7 +1296,27 @@ def end_to_end(torch, card):
             "port_shards.json", "port_mesh.vcf", "port_mesh.json",
             "host0.vcf", "host1.vcf", "host0.json", "host1.json",
             "hosts.vcf", "host_noexact.vcf", "host_noexact.json",
-            "port_noexact.vcf", "port_noexact.json")}
+            "port_noexact.vcf", "port_noexact.json", "host_partial.vcf",
+            "host_partial.json", "host_partial_noexact.vcf",
+            "host_partial_noexact.json", "port_partial.vcf",
+            "port_partial.json", "port_partial_noexact.vcf",
+            "port_partial_noexact.json")}
+        # partial -C regions, one a contig, each a block wider than the
+        # fused tier takes: the column tier's pipeline and K2 in f64. The
+        # runs read the fixture through links in a directory of their own,
+        # where a single-process partial -C run writes its .bai
+        part = os.path.join(tmp, "partial")
+        os.mkdir(part)
+        for name in (bam, ref, ref + ".fai"):
+            if os.path.exists(name):
+                os.link(name, os.path.join(part, os.path.basename(name)))
+        bed = os.path.join(part, "regions.bed")
+        with open(bed, "w") as f:
+            for i in range(n_ctg):
+                f.write(f"chr{i + 1}\t{REGION[0]}\t{REGION[1]}\n")
+        partial = [os.path.join(part, os.path.basename(bam)), "-r",
+                   os.path.join(part, os.path.basename(ref)), "-D", dbsnp,
+                   "--benchmark-mode", "-C", bed]
 
         t0 = time.perf_counter()
         subprocess.run(
@@ -1181,22 +1335,33 @@ def end_to_end(torch, card):
             cwd=HERE, env={**env, "JAX_PLATFORMS": "cpu"}, check=True,
         )
         host_noexact_s = time.perf_counter() - t0
+        def reference(tag):
+            """Wait for the reference run `tag` if it is still pending."""
+            if tag in pending:
+                p, t0 = pending.pop(tag)
+                if p.wait() != 0:
+                    raise AssertionError(f"bs_call_tpu ({tag}) exited "
+                                         f"{p.returncode}")
+                host_partial_s[tag] = time.perf_counter() - t0
 
         def read(k):
             with open(out[k]) as f:
                 return f.read()
 
-        def port_run(tag, env, flags=(), devices=None, exact=True):
-            """One port run in this process, the launch counts reset just
-            before it; the environment (BS_CALL_EMIT_TIER, read when the
-            engine is built; BS_CALL_FORCE_SHARDS) is set around
+        def port_run(tag, env, flags=(), devices=None, exact=True,
+                     args=common, want="host"):
+            """One port run in this process on `args`, the launch counts
+            reset just before it; the environment (BS_CALL_EMIT_TIER, read
+            when the engine is built; BS_CALL_FORCE_SHARDS) is set around
             cli.main, and with `devices` the engine's device list (the
             mesh `engine_devices` would give on that many cards). Exact
-            runs must write the reference's bytes through the fused tier,
-            one K12 launch a chunk and slab; a --no-exact run (`exact`
-            false) must pass `check_no_exact` against the reference's
-            --no-exact VCF through the column tier alone, one K2 launch a
-            column chunk."""
+            runs must write the bytes of the reference's run `want`, one
+            K12 launch a fused chunk and slab, through the fused tier on
+            the whole contigs, and on partial regions also through the
+            column tier (shape reroutes, one K2 f64 launch a column
+            chunk); a --no-exact run (`exact` false) must pass
+            `check_no_exact` against `want`'s VCF through the column tier
+            alone, one K2 f32 launch a column chunk."""
             tracer = Tracer()
             for fn in (K2.genotype_column, K3.emit_fields_cuda,
                        K12.pileup_genotype):
@@ -1211,7 +1376,7 @@ def end_to_end(torch, card):
             try:
                 t0 = time.perf_counter()
                 rc = cli.main(
-                    [*common, "-o", out[f"{tag}.vcf"], "--report-file",
+                    [*args, "-o", out[f"{tag}.vcf"], "--report-file",
                      out[f"{tag}.json"], "--device", "cuda", *flags],
                     tracer=tracer,
                 )
@@ -1244,8 +1409,9 @@ def end_to_end(torch, card):
                 + f"; positions {tracer.counts.get('positions', 0)}")
             log(f"e2e [{card}]: {tag}: stage seconds " + json.dumps(
                 {k: round(v, 3) for k, v in sorted(tracer.times.items())}))
+            reference(want)
             if not exact:
-                n_rec = check_no_exact(read("host_noexact.vcf"),
+                n_rec = check_no_exact(read(f"{want}.vcf"),
                                        read(f"{tag}.vcf"))
                 chunks = tracer.counts.get("column_chunks", 0)
                 if (tiers.get("column", 0) == 0 or tiers.get("fused", 0)
@@ -1264,18 +1430,30 @@ def end_to_end(torch, card):
                     f"f32 {launches['genotype_column_f32']}, f64 "
                     f"{launches['genotype_column_f64']}")
                 return wall, launches, tiers, workers
-            if read(f"{tag}.vcf") != read("host.vcf"):
+            if read(f"{tag}.vcf") != read(f"{want}.vcf"):
                 raise AssertionError(
                     f"{tag}: VCF bytes differ from bs_call_tpu --device cpu"
                 )
             if strip_date(read(f"{tag}.json")) != strip_date(
-                read("host.json")
+                read(f"{want}.json")
             ):
                 raise AssertionError(
                     f"{tag}: report differs from bs_call_tpu --device cpu"
                 )
             chunks = tracer.counts.get("fused_chunks", 0)
-            if tiers.get("fused", 0) == 0 or chunks == 0:
+            if args is not common:
+                col = tracer.counts.get("column_chunks", 0)
+                if (tiers.get("shape_reroute", 0) == 0 or col == 0
+                        or launches["genotype_column_f64"] != col
+                        or launches["genotype_column_f32"]):
+                    raise AssertionError(
+                        f"{tag}: tiers {tiers}, {col} column chunks, "
+                        f"launches {launches}: not one K2 f64 launch a "
+                        "column chunk on the rerouted regions")
+                log(f"e2e [{card}]: {tag}: VCF and report bytes equal "
+                    f"bs_call_tpu -C --device cpu; K2 f64 launched once per "
+                    f"column chunk ({col}), K12 {chunks} fused chunks")
+            elif tiers.get("fused", 0) == 0 or chunks == 0:
                 raise AssertionError(f"{tag}: fused tier carried nothing")
             k12 = (workers.get("pileup_genotype", 0) if workers
                    else launches["pileup_genotype_f64"])
@@ -1374,8 +1552,41 @@ def end_to_end(torch, card):
             f"; the hosts' VCFs concatenated and host 0's report equal the "
             f"reference's bytes")
         # --no-exact: the column tier, K2 in f32, on every covered position
-        ne_s, ne_launches, _tiers, _w = port_run("port_noexact", {},
-                                                 ("--no-exact",), exact=False)
+        ne_s, ne_launches, _tiers, _w = port_run(
+            "port_noexact", {}, ("--no-exact",), exact=False,
+            want="host_noexact")
+        # partial -C regions: the column tier's pipeline, K2 in f64 on the
+        # exact run and in f32 on the --no-exact run. The reference's two
+        # runs start first, on the .bai a partial -C run would build
+        # beside its input, and run beside the port's (their scalar
+        # emitters take ~30 s each on one core); each is timed from its
+        # start to its exit, as the port's runs are
+        write_bai(partial[0])
+        for tag, flags, penv in (
+                ("host_partial", (), env),
+                ("host_partial_noexact", ("--no-exact",),
+                 {**env, "JAX_PLATFORMS": "cpu"})):
+            pending[tag] = (subprocess.Popen(
+                [sys.executable, "-m", "bs_call_tpu.cli", *partial, *flags,
+                 "-o", out[f"{tag}.vcf"], "--report-file",
+                 out[f"{tag}.json"], "--device", "cpu"],
+                cwd=HERE, env=penv), time.perf_counter())
+        pc_s, pc_launches, pc_tiers, _w = port_run(
+            "port_partial", {"BS_CALL_EMIT_TIER": "1"}, args=partial,
+            want="host_partial")
+        pne_s, pne_launches, pne_tiers, _w = port_run(
+            "port_partial_noexact", {}, ("--no-exact",), exact=False,
+            args=partial, want="host_partial_noexact")
+        n_pos = n_ctg * (REGION[1] - REGION[0])
+        log(f"e2e [{card}]: walls, partial -C ({n_ctg} regions of "
+            f"{REGION[1] - REGION[0]} positions, {n_pos} in all): port "
+            f"--device cuda in this process {pc_s:.3f} s, --no-exact "
+            f"{pne_s:.3f} s; reference bs_call_tpu -C --device cpu as a "
+            f"subprocess {host_partial_s['host_partial']:.3f} s, --no-exact "
+            f"(JAX f32 on XLA:CPU) "
+            f"{host_partial_s['host_partial_noexact']:.3f} s (both beside "
+            f"the port's runs); tiers "
+            f"{json.dumps(pc_tiers)} and {json.dumps(pne_tiers)}")
         n_rec = sum(1 for ln in read("port.vcf").splitlines()
                     if not ln.startswith("#"))
         log(f"e2e [{card}]: {total} reads, {n_rec} VCF records; VCF and "
@@ -1403,14 +1614,18 @@ def end_to_end(torch, card):
             launches[f"{name}_mesh"] = mesh_launches[name]
             launches[f"{name}_num_hosts"] = sum(h[key]
                                                 for h in host_launches)
-        # K2's two entries on --no-exact's path, as that run counted them
-        for name in ("genotype_column_f64", "genotype_column_f32"):
-            launches[name] = ne_launches[name]
+        # K2 on its paths: f64 on the exact partial -C run's column tier,
+        # f32 on the --no-exact run's (whole contigs, and partial -C)
+        launches["genotype_column_f64"] = pc_launches["genotype_column_f64"]
+        launches["genotype_column_f32"] = ne_launches["genotype_column_f32"]
+        launches["genotype_column_f32_partial"] = pne_launches[
+            "genotype_column_f32"]
         return launches
     finally:
-        if ref_build.poll() is None:
-            ref_build.kill()
-            ref_build.wait()
+        for p in [ref_build, *(p for p, _t0 in pending.values())]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -1445,6 +1660,7 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     k2 = check_k2(torch, np, dev)
+    check_column_pipeline(torch, np, dev, card)
     k3 = check_k3(torch, np, dev)
     k12 = check_k12(torch, np, dev)
     fpc, fpc_launches = check_fused_pileup_call(torch, np, dev)
@@ -1470,11 +1686,12 @@ def main() -> int:
          **fpc["f32"]},
         {"name": "genotype_column_f64", "route": "cuda",
          "source": src + "genotype.cu", "replaces": pallas,
-         "launches": launches["genotype_column_f64"], "path": "--no-exact",
-         **k2["genotype_column_f64"]},
+         "launches": launches["genotype_column_f64"],
+         "path": "-C partial regions, exact", **k2["genotype_column_f64"]},
         {"name": "genotype_column_f32", "route": "cuda",
          "source": src + "genotype.cu", "replaces": pallas,
          "launches": launches["genotype_column_f32"], "path": "--no-exact",
+         "launches_partial": launches["genotype_column_f32_partial"],
          **k2["genotype_column_f32"]},
         {"name": "emit_fields_f64", "route": "cuda",
          "source": src + "emit.cu",

@@ -3,8 +3,9 @@
 blocked at import time, every port module imports and the port's CLI
 writes the golden VCF, BCF, VCF.gz and report bytes on the CPU; and the
 port's copies of the host side's pure functions (scalar oracle, Fisher
-test, pileup aggregates, phred scores, model tables) give exactly the
-JAX package's results on seeded inputs."""
+test, pileup aggregates, phred scores, model tables, the numpy f64 model,
+CSI binning, the CRAM codec helpers) give exactly the JAX package's
+results on seeded inputs."""
 
 import ast
 import gzip
@@ -17,9 +18,15 @@ import numpy as np
 import pytest
 
 from bs_call_tpu import cli as jax_cli
+from bs_call_tpu.io import cram_codecs as j_codecs
+from bs_call_tpu.io import csi as j_csi
+from bs_call_tpu.ops import genotype_np as j_np
 from bs_call_tpu.ops import oracle as j_oracle
 from bs_call_tpu.ops import postprocess as j_post
 from bs_call_tpu.ops import tables as j_tables
+from bs_call_tpu_torch.io import cram_codecs as p_codecs
+from bs_call_tpu_torch.io import csi as p_csi
+from bs_call_tpu_torch.ops import genotype_np as p_np
 from bs_call_tpu_torch.ops import oracle as p_oracle
 from bs_call_tpu_torch.ops import postprocess as p_post
 from bs_call_tpu_torch.ops import tables as p_tables
@@ -179,6 +186,47 @@ def _case_tables(mod, rng):
             mod.ref_prior_matrix(float(rng.uniform(1, 3))), mod.NONINF_SEL]
 
 
+def _case_genotype_np(mod, rng):
+    n = 2000
+    counts = rng.integers(0, 30, (n, 8)).astype(np.int32)
+    counts[rng.random((n, 8)) < 0.5] = 0
+    quals = np.where(counts > 0, rng.integers(0, 44, (n, 8)), 0).astype(
+        np.int32)
+    ref = rng.integers(0, 5, n).astype(np.int32)
+    return [mod.genotype_ll_np(counts, quals, ref, 0.01, 0.05, 2.0),
+            mod.call_genotypes_np(counts, quals, ref, 0.02, 0.03, 2.5)]
+
+
+def _case_reg2bin(mod, rng):
+    out = []
+    for shift, depth in ((14, 5), (12, 6)):
+        beg = rng.integers(0, 1 << 28, 300)
+        end = beg + rng.integers(1, 200_000, 300)
+        out.append([mod.reg2bin(int(b), int(e), shift, depth)
+                    for b, e in zip(beg, end)])
+    return out
+
+
+def _case_cram_codecs(mod, rng):
+    vals = [*map(int, rng.integers(0, 1 << 31, 200)), 0, 127, 128, 16383,
+            16384, (1 << 32) - 1]
+    big = [*map(int, rng.integers(0, 1 << 62, 200)), 0, 255, 1 << 56]
+    data = bytes(rng.integers(0, 6, 5000).astype(np.uint8))
+    enc = [mod.write_itf8(v) for v in vals] + [mod.write_ltf8(v) for v in big]
+    blob = b"".join(enc)
+    dec, off = [], 0
+    for _ in enc[:len(vals)]:
+        v, off = mod.read_itf8(blob, off)
+        dec.append(v)
+    for _ in big:
+        v, off = mod.read_ltf8(blob, off)
+        dec.append(v)
+    o0, o1 = mod.rans_encode_o0(data), mod.rans_encode_o1(data)
+    return [np.frombuffer(blob, np.uint8), np.asarray(dec, np.int64),
+            np.frombuffer(o0, np.uint8), np.frombuffer(o1, np.uint8),
+            np.frombuffer(mod.rans_decode(o1), np.uint8)]
+
+
 def _flatten(x):
     if isinstance(x, dict):
         return [(k, v) for k in sorted(x) for v in _flatten(x[k])]
@@ -194,8 +242,11 @@ def _flatten(x):
     (_case_fisher_strand, j_post, p_post),
     (_case_phred_scores, j_post, p_post),
     (_case_tables, j_tables, p_tables),
+    (_case_genotype_np, j_np, p_np),
+    (_case_reg2bin, j_csi, p_csi),
+    (_case_cram_codecs, j_codecs, p_codecs),
 ], ids=["calc_gt_prob", "fisher", "aggregate_pileup", "fisher_strand",
-      "phred_scores", "tables"])
+      "phred_scores", "tables", "genotype_np", "reg2bin", "cram_codecs"])
 def test_copied_pure_functions_equal_the_jax_package(case, jax_mod,
                                                      port_mod):
     want = _flatten(case(jax_mod, np.random.default_rng(17)))
