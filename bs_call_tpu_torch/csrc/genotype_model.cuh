@@ -1,17 +1,21 @@
 // The 10-genotype bisulfite likelihood model, as device functions shared
-// by K2 (genotype.cu, a tile of positions a CTA) and K12
-// (pileup_genotype.cu, two threads per position). Same math as
+// by K2 (genotype.cu, a tile of 32 positions a CTA of four warps) and K12
+// (pileup_genotype.cu, a tile of 128 positions a CTA of 16 warps), both
+// on the same task split. Same math as
 // bs_call_tpu_torch/ops/genotype.py (genotype_model.c:23-246).
 //
 // The model splits into two halves that share nothing but the inputs:
 // the C->T half (categories 5 and 7, get_Z on counts 5 and 7) and the
 // G->A half (categories 6 and 4, get_Z on counts 6 and 4), three safe logs
-// per category (`half_logs`). Within a half, z_j of get_Z feeds one log
-// slot of each side (`get_z1`, `side_log`). `accumulate` then adds every
+// per category. Within a half, z_j of get_Z feeds one log slot of each
+// side (`get_z1`, `side_log`), a (half, j) task. `accumulate` then adds every
 // category's terms to the prior in the reference's order, so one thread
 // that computes every log and threads that compute a part each and hand
-// them over (K12 a half by shuffles, K2 a (half, j) through shared memory)
-// give the same bits. Each log is computed only where its category count
+// them over (K2 and K12 a (half, j) task each, through shared memory)
+// give the same bits. Its two parts, the prior and categories 0-3
+// (`accumulate_plain`, which needs no log) and categories 4-7
+// (`accumulate_meth`), keep that order when run apart, as K12 runs the
+// first beside the log tasks. Each log is computed only where its category count
 // is > 0, as the reference does. The finish (genotype_model.c:231-245) is
 // written out in each kernel, as its threads share it.
 //
@@ -71,13 +75,6 @@ __device__ __forceinline__ T get_z1(int j, T x1, T x2, T k1, T k2, double l,
 }
 
 template <typename T>
-__device__ __forceinline__ void get_z(T x1, T x2, T k1, T k2, double l,
-                                      double t, T z[3]) {
-#pragma unroll
-  for (int j = 0; j < 3; ++j) z[j] = get_z1(j, x1, x2, k1, k2, l, t);
-}
-
-template <typename T>
 __device__ __forceinline__ void add_cat(T ll[kNG], T ni, const T coef[kNG]) {
   if (ni > T(0)) {
 #pragma unroll
@@ -98,28 +95,6 @@ __device__ __forceinline__ T side_log(int side, int slot, T z, T k) {
                               : one - half * z + k);
 }
 
-// One half of the methylation-informative terms: z = get_Z(nA, nB, kA,
-// kB), then its side a when nA > 0 and its side b when nB > 0. The C->T
-// half is (nA, nB) = (n5, n7), the G->A half (n6, n4): the same code on
-// other inputs, so two threads of one warp can run the two halves without
-// diverging.
-template <typename T>
-__device__ __forceinline__ void half_logs(T nA, T nB, T kA, T kB, double l,
-                                          double t, T a[3], T b[3]) {
-  T z[3];
-  get_z(nA, nB, kA, kB, l, t, z);
-  if (nA > T(0)) {
-#pragma unroll
-    for (int slot = 0; slot < 3; ++slot)
-      a[slot] = side_log(0, slot, z[(slot + 2) % 3], kA);
-  }
-  if (nB > T(0)) {
-#pragma unroll
-    for (int slot = 0; slot < 3; ++slot)
-      b[slot] = side_log(1, slot, z[(slot + 2) % 3], kB);
-  }
-}
-
 // the quality-table row of each category: k, ln k, ln(k+1/2), ln(k+1)
 template <typename T>
 __device__ __forceinline__ void qual_terms(const int q[8], const T* s_tab,
@@ -135,13 +110,12 @@ __device__ __forceinline__ void qual_terms(const int q[8], const T* s_tab,
   }
 }
 
-// ll [10] = prior + every category's terms, in the reference's order;
-// c5/c7 are the C->T half's a/b, c6/c4 the G->A half's a/b
+// ll [10] = prior + the non-informative categories' terms (0-3), in the
+// reference's order: the first part of `accumulate`, which needs no log
 template <typename T>
-__device__ __forceinline__ void accumulate(
+__device__ __forceinline__ void accumulate_plain(
     const T n[8], const T lnk[8], const T lnkh[8], const T lnk1[8],
-    const T* prior_row, const T c5[3], const T c7[3], const T c6[3],
-    const T c4[3], T ll[kNG]) {
+    const T* prior_row, T ll[kNG]) {
   // NONINF_SEL (bs_call_tpu_torch/ops/tables.py): 2 -> ln(1+k),
   // 1 -> ln(.5+k), 0 -> ln k, for observed base A,C,G,T and each
   // genotype; read at constant indices, so it folds into the code
@@ -165,7 +139,15 @@ __device__ __forceinline__ void accumulate(
     }
     add_cat(ll, n[i], coef);
   }
+}
 
+// ll [10] += the methylation-informative categories' terms (4-7), in the
+// reference's order: the second part of `accumulate`; c5/c7 are the C->T
+// half's a/b, c6/c4 the G->A half's a/b
+template <typename T>
+__device__ __forceinline__ void accumulate_meth(
+    const T n[8], const T lnk[8], const T lnkh[8], const T lnk1[8],
+    const T c5[3], const T c7[3], const T c6[3], const T c4[3], T ll[kNG]) {
   // methylation-informative categories (genotype_model.c:165-230)
   if (n[4] > T(0)) {
     const T c[kNG] = {lnk1[4], lnkh[4], c4[2], lnkh[4], lnk[4],
@@ -187,6 +169,16 @@ __device__ __forceinline__ void accumulate(
                       c7[0],  c7[2], lnk[7], lnkh[7], lnk1[7]};
     add_cat(ll, n[7], c);
   }
+}
+
+// ll [10] = prior + every category's terms, in the reference's order
+template <typename T>
+__device__ __forceinline__ void accumulate(
+    const T n[8], const T lnk[8], const T lnkh[8], const T lnk1[8],
+    const T* prior_row, const T c5[3], const T c7[3], const T c6[3],
+    const T c4[3], T ll[kNG]) {
+  accumulate_plain(n, lnk, lnkh, lnk1, prior_row, ll);
+  accumulate_meth(n, lnk, lnkh, lnk1, c5, c7, c6, c4, ll);
 }
 
 // first-maximum argmax of ll

@@ -2,10 +2,12 @@
 kernel of `csrc/pileup_genotype.cu`.
 
 K12 computes the pileup of a read batch and the genotype model on it in
-one launch: each CTA accumulates one tile of TILE positions from the
-read rows that meet it in shared memory, writes the tile's pileup planes
-once, and runs the 10-genotype model and finish on them from shared
-memory. Its plain PyTorch version is `pileup_device.device_pileup_plain`
+one launch: each CTA of 16 warps takes one tile of TILE positions,
+stages the read rows that meet it into shared memory with bulk copies
+(TMA), accumulates the tile's pileup there with integer atomics, a
+quarter of the tile a warp, writes the tile's pileup planes once, and
+runs the 10-genotype model and finish on them from shared memory on
+K2's task split (six log tasks a position over four rows of warps). Its plain PyTorch version is `pileup_device.device_pileup_plain`
 followed by `genotype.call_genotypes_pileup_plain`; `pileup_device`'s
 `fused_pileup_call`, `fused_ll_f64` and `fused_ll_emit` send a CPU batch
 there and a CUDA batch here.

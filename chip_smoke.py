@@ -37,10 +37,15 @@ and g++. Phases, each of which raises on failure (exit code 1):
    (the kernel's with and without ctx);
 5. K12, the pileup and the genotype model per position tile, against its
    plain version (`device_pileup_plain` then
-   `call_genotypes_pileup_plain`) on the card, in f64 and f32, at 4,096
-   reads x 256 bases over 32,832 positions and on a hot position (5,000
+   `call_genotypes_pileup_plain`) on the card, in f64 and f32, on
+   `k12_batches` at 32,832 positions: (a) 4,096 random reads x 256
+   bases, (b) `wgbs_reads` at depth 18 padded to L = 160, (b256) the
+   same as the engine pads them (L = 256), and a hot position (5,000
    reads of mapq 59 over one position, which takes `mapq2_sum` past
-   2^24): integers exact, f64 within K2's tolerances;
+   2^24; f64 only); then on `K12_EDGE_CASES` (L = 64 and 2,048, tiles
+   with no row, a tile whose rows fill many stages, n_pos not a multiple
+   of 128 with rows before 0 and past n_pos, min_qual 0): integers
+   exact, f64 within K2's tolerances; K12 f64 timed on (a) and (b);
 6. `fused_pileup_call` (any read batch -> K12 in f32 or f64) against its
    plain version on the card, on the fused tier's chunk (4,096 x 256)
    and on a batch that needs the wrapper's preparation (100-byte rows out
@@ -113,8 +118,8 @@ for K12 f32, the partial `-C` exact run for K2 f64 and the 600k
 partial `-C --no-exact` run), each counted by its dtype; for K12 f64 and
 K3 also
 `launches_mesh`, of the engine over two slabs, and `launches_num_hosts`,
-both hosts' summed; K3's `ms_ctx` with ctx known; K2's and K3's
-`*_wgbs` times on their batch (b)); the last is `{"ok": true,
+both hosts' summed; K3's `ms_ctx` with ctx known; K2's, K3's and K12
+f64's `*_wgbs` times and bounds on their batch (b)); the last is `{"ok": true,
 "device": {...}}`. Imports nothing of JAX and nothing of `bs_call_tpu`,
 which it runs only as the reference subprocess.
 """
@@ -737,60 +742,141 @@ def hot_batch(np, n_pos, seed):
     return rd, starts, ori, strand, mapq
 
 
+def k12_batches(torch, np, dev):
+    """K12's timed batches on the card, each (rows [rd, starts, ori,
+    strand, mapq], tiles, ref) at N_POS: "a", `read_batch(4096, 256)`,
+    random reads; "b", `wgbs_reads` at depth 18, sorted and padded to
+    L = 160 with its tile table (`prepare_batch`); "b256", the same reads
+    as the engine pads them (`pad_read_batch` to a power-of-two row count
+    and L = 256, `tile_rows`); "hot", `hot_batch`."""
+    from bs_call_tpu_torch.ops.kernels import pileup_device as PD
+
+    ref_a = np.random.default_rng(4).integers(0, 5, N_POS).astype(np.int32)
+    out = {}
+    for kind, batch in (("a", read_batch(np, 4096, 256, N_POS, 1)),
+                        ("hot", hot_batch(np, N_POS, 5))):
+        R, L = batch[0].shape
+        out[kind] = ([torch.from_numpy(a).to(dev) for a in batch],
+                     torch.from_numpy(PD.tile_rows(batch[1], R, N_POS,
+                                                   L)).to(dev),
+                     torch.from_numpy(ref_a).to(dev))
+    wb, wref = wgbs_reads(np, N_POS, 0)
+    rows, tiles = PD.prepare_batch(
+        *[torch.from_numpy(a).to(dev) for a in wb], N_POS)
+    out["b"] = (list(rows), tiles, torch.from_numpy(wref).to(dev))
+    L = wb[0].shape[1]
+    reads = dict(zip(("rd", "starts", "ori", "strand", "mapq"), wb))
+    reads["lens"] = np.full(len(wb[1]), L, np.int32)
+    n_rows = int(((wb[1] <= N_POS - 1) & (wb[1] + L - 1 >= 0)).sum())
+    r_pad = 1 << max(10, (n_rows - 1).bit_length())
+    padded = PD.pad_read_batch(reads, 0, N_POS - 1, r_pad, 256)
+    out["b256"] = ([torch.from_numpy(a).to(dev) for a in padded],
+                   torch.from_numpy(PD.tile_rows(padded[1], n_rows, N_POS,
+                                                 256)).to(dev),
+                   out["b"][2])
+    return out
+
+
+def k12_edge_batch(np, case, seed):
+    """((rd, starts, ori, strand, mapq), n_pos, min_qual) of one of K12's
+    edge cases, the rows sorted by start: "L64" and "L2048", the narrowest
+    and widest rows; "sparse", tiles with no row; "deep", 600 rows of 256
+    bytes over 100 positions (a tile's rows far past one stage); "ragged",
+    n_pos not a multiple of 128, rows starting before 0 and running past
+    n_pos; "minq0", min_qual 0, where the trim decides (q = 0 bytes count
+    inside a row's live span and not outside it)."""
+    rng = np.random.default_rng(seed)
+    n_pos, R, L, lo_len, min_qual = 8192, 1500, 256, 100, 20
+    if case == "L64":
+        R, L, lo_len = 3000, 64, 30
+    elif case == "L2048":
+        n_pos, R, L, lo_len = 16384, 400, 2048, 1000
+    elif case == "ragged":
+        n_pos = 8192 + 77
+    elif case == "minq0":
+        min_qual = 0
+    lens = rng.integers(lo_len, L + 1, R)
+    starts = rng.integers(-L, n_pos + 40, R)
+    if case == "sparse":
+        starts = np.where(rng.random(R) < 0.5, rng.integers(-50, 2000, R),
+                          rng.integers(6000, n_pos, R))
+    elif case == "deep":
+        starts[:600] = rng.integers(1000 - 100, 1100, 600)
+    q = rng.integers(0, 44, size=(R, L))
+    q[rng.random((R, L)) < 0.02] = 63
+    rd = ((q << 2) | rng.integers(0, 4, size=(R, L))).astype(np.uint8)
+    rd[np.arange(L)[None, :] >= lens[:, None]] = 0
+    if case == "minq0":
+        rd[::5, :8] = rng.integers(0, 4, size=(len(rd[::5]), 8))  # q = 0
+        rd[::9] = 63 << 2  # every byte masked: the row is trimmed away
+    order = np.argsort(starts, kind="stable")
+    return (rd[order], starts[order].astype(np.int32),
+            rng.integers(0, 2, R).astype(np.int32),
+            rng.integers(0, 3, R).astype(np.int32),
+            rng.integers(0, 61, R).astype(np.int32)), n_pos, min_qual
+
+
+K12_EDGE_CASES = ("L64", "L2048", "sparse", "deep", "ragged", "minq0")
+
+
+def check_k12_case(torch, G, PD, K12, tag, args, tiles, ref, n_pos,
+                   min_qual, tables):
+    """K12 against its plain version on one batch: the planes and quals
+    exact, the model as `compare_model`. Returns (K12's outputs, the plain
+    version's, max|d gt_prob|, its share of assert_close's limit)."""
+    got = K12.pileup_genotype(*args, tiles, ref, n_pos, min_qual, tables)
+    c2, qs, m2 = PD.device_pileup_plain(*args, n_pos, min_qual)
+    want = (c2, qs, m2, *G.call_genotypes_pileup_plain(c2, qs, ref, tables))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("counts2", "qual_sum", "mapq2_sum"), got[:3],
+                          want[:3]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K12 {tag}: {name} differs")
+    if not torch.equal(got[7], want[7]):
+        raise AssertionError(f"K12 {tag}: quals differ")
+    err, ratio = compare_model(torch, f"K12 {tag}", got[3:7], want[3:7],
+                               tables.dtype)
+    return got, want, err, ratio
+
+
 def check_k12(torch, np, dev):
-    """K12 against its plain version at the fused tier's chunk of reads
-    and on the hot position, f64 and f32; K12 f64 timed on the chunk."""
+    """K12 against its plain version, f64 and f32, on `k12_batches` and on
+    `K12_EDGE_CASES` (the hot batch and "deep" in f64 only); K12 f64
+    timed on batches (a) and (b)."""
     from bs_call_tpu_torch.ops import genotype as G
     from bs_call_tpu_torch.ops.kernels import pileup_device as PD
     from bs_call_tpu_torch.ops.kernels import pileup_genotype_cuda as K12
     from bs_call_tpu_torch.ops.params import ModelParams, model_tables
 
-    rng = np.random.default_rng(4)
-    ref = torch.from_numpy(rng.integers(0, 5, N_POS).astype(np.int32)).to(dev)
-    result = None
-    for case, batch in (("batch", read_batch(np, 4096, 256, N_POS, 1)),
-                        ("hot", hot_batch(np, N_POS, 5))):
-        R, L = batch[0].shape
-        tiles = torch.from_numpy(
-            PD.tile_rows(batch[1], R, N_POS, L)).to(dev)
-        args = [torch.from_numpy(a).to(dev) for a in batch]
-        # f32 (off the main path) only at the shallow batch, where K2's
-        # f32 tolerances hold: at depth 5,000 an f32 log-likelihood of
-        # ~1e4 carries ~1e-3 of rounding
-        dtypes = ((torch.float64, 1e-12), (torch.float32, 2e-5))
-        for dtype, tol in dtypes[: 2 if case == "batch" else 1]:
+    # f32 (off the main path) not at the hot position, where K2's f32
+    # tolerances do not hold: at depth 5,000 an f32 log-likelihood of ~1e4
+    # carries ~1e-3 of rounding
+    dtypes = ((torch.float64, 1e-12), (torch.float32, 2e-5))
+    result, errs = {}, []
+    for kind, (args, tiles, ref) in k12_batches(torch, np, dev).items():
+        R, L = args[0].shape
+        for dtype, tol in dtypes[: 1 if kind == "hot" else 2]:
             tables = model_tables(ModelParams(), dtype, dev)
-            got = K12.pileup_genotype(*args, tiles, ref, N_POS, 20, tables)
-            c2, qs, m2 = PD.device_pileup_plain(*args, N_POS, 20)
-            want = (c2, qs, m2,
-                    *G.call_genotypes_pileup_plain(c2, qs, ref, tables))
-            torch.cuda.synchronize()
-            for name, a, b in zip(("counts2", "qual_sum", "mapq2_sum"),
-                                  got[:3], want[:3]):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"K12 {case} {dtype}: {name} differs")
-            if not torch.equal(got[7], want[7]):
-                raise AssertionError(f"K12 {case} {dtype}: quals differ")
-            f64 = dtype == torch.float64
-            err, ratio = compare_model(torch, f"K12 {case} {dtype}",
-                                       got[3:7], want[3:7], dtype)
+            tag = f"batch {kind} {'f64' if dtype == torch.float64 else 'f32'}"
+            got, want, err, ratio = check_k12_case(
+                torch, G, PD, K12, tag, args, tiles, ref, N_POS, 20, tables)
+            errs.append(err)
             hot = int((got[2] >= 2.0**24).sum())
-            log(f"K12 {case} {'f64' if f64 else 'f32'}: R={R} L={L} "
-                f"n_pos={N_POS} integers exact, {int(got[0].sum())} bases, "
-                f"{hot} positions with mapq2_sum >= 2^24; max|d gt_prob|="
-                f"{err:.3e}, assert_close(rtol={tol:g}, atol={tol:g}) at "
-                f"{ratio:.3f} of its limit")
-            if case == "hot" and hot == 0:
+            log(f"K12 {tag}: R={R} L={L} n_pos={N_POS} integers exact, "
+                f"{int(got[0].sum())} bases, {hot} positions with mapq2_sum "
+                f">= 2^24; max|d gt_prob|={err:.3e}, assert_close(rtol="
+                f"{tol:g}, atol={tol:g}) at {ratio:.3f} of its limit")
+            if kind == "hot" and hot == 0:
                 raise AssertionError("K12 hot: mapq2_sum never passed 2^24")
-            if case != "batch" or not f64:
+            if kind not in ("a", "b") or dtype != torch.float64:
                 continue
-            def k12():
-                return K12.pileup_genotype(*args, tiles, ref, N_POS, 20,
-                                           tables)
 
-            def plain():
-                c2, qs, _ = PD.device_pileup_plain(*args, N_POS, 20)
-                return G.call_genotypes_pileup_plain(c2, qs, ref, tables)
+            def k12(a=args, tl=tiles, r=ref, t=tables):
+                return K12.pileup_genotype(*a, tl, r, N_POS, 20, t)
+
+            def plain(a=args, r=ref, t=tables):
+                c2, qs, _ = PD.device_pileup_plain(*a, N_POS, 20)
+                return G.call_genotypes_pileup_plain(c2, qs, r, t)
 
             ms_a, ms_b = device_ms(k12, torch), device_ms(k12, torch)
             ms = (ms_a + ms_b) / 2
@@ -801,13 +887,38 @@ def check_k12(torch, np, dev):
             n_out = (PILEUP_BYTES + MODEL_OUT_BYTES) * N_POS
             b_ms, b_by = bound(n_in + n_out,
                                model_flops(np, want[0].sum(1).cpu().numpy()))
-            log(f"K12 pileup_genotype_f64: kernel {ms:.4f} ms ({ms_a:.4f}, "
-                f"{ms_b:.4f}; eager {eager_ms:.4f} ms); plain "
+            log(f"K12 pileup_genotype_f64 batch {kind}: kernel {ms:.4f} ms "
+                f"({ms_a:.4f}, {ms_b:.4f}; eager {eager_ms:.4f} ms); plain "
                 f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
-            result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                      "eager_ms": eager_ms}
-    return result
+            sfx = "" if kind == "a" else "_wgbs"
+            result.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
+                           "bound_ms" + sfx: b_ms, "bound_by" + sfx: b_by,
+                           "eager_ms" + sfx: eager_ms})
+    for i, case in enumerate(K12_EDGE_CASES):
+        batch, n_pos, min_qual = k12_edge_batch(np, case, 30 + i)
+        R, L = batch[0].shape
+        args = [torch.from_numpy(a).to(dev) for a in batch]
+        tiles = torch.from_numpy(PD.tile_rows(batch[1], R, n_pos, L)).to(dev)
+        ref = torch.from_numpy(np.random.default_rng(i).integers(
+            0, 5, n_pos).astype(np.int32)).to(dev)
+        empty = int((tiles[:, 1] <= tiles[:, 0]).sum())
+        deepest = int((tiles[:, 1] - tiles[:, 0]).max())
+        # f32 not on "deep" (depth ~600), for the hot batch's reason
+        for dtype, _tol in dtypes[: 1 if case == "deep" else 2]:
+            tables = model_tables(ModelParams(), dtype, dev)
+            tag = f"{case} {'f64' if dtype == torch.float64 else 'f32'}"
+            got, _, err, ratio = check_k12_case(
+                torch, G, PD, K12, tag, args, tiles, ref, n_pos, min_qual,
+                tables)
+            errs.append(err)
+            log(f"K12 {tag}: R={R} L={L} n_pos={n_pos} min_qual={min_qual}"
+                f", {empty} tiles with no row, at most {deepest} rows a tile "
+                f"({deepest * L} B); integers exact, {int(got[0].sum())} "
+                f"bases; max|d gt_prob|={err:.3e}, assert_close at "
+                f"{ratio:.3f} of its limit")
+        if case == "sparse" and not empty:
+            raise AssertionError("K12 sparse: every tile has rows")
+    return {"max_abs_err": max(errs), **result, "library_ms": None}
 
 
 def prep_batch(np, n_pos, seed):

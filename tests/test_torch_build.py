@@ -129,6 +129,36 @@ __global__ void __launch_bounds__(kBlock)
 }
 """
 
+# the kernel of K12's first design, two threads a position, as far as
+# `kernel_phases.k12_variants` edits it: the tool times an earlier
+# commit's source beside this checkout's
+K12_TWO_THREAD = """
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) pileup_genotype_kernel(
+    const uint8_t* __restrict__ rd, const int* __restrict__ tiles, int L,
+    int n_pos, int min_qual) {
+  __shared__ int s_counts[16 * kStride];  // [ori*8 + cat][position]
+  __shared__ int s_qsum[8 * kStride];     // [cat][position]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  for (int j = tid; j < 16 * kStride; j += kThreads) s_counts[j] = 0;
+  for (int j = tid; j < 8 * kStride; j += kThreads) s_qsum[j] = 0;
+
+  // ---- pileup: staged batches of the rows that meet the tile ----
+  const int r0 = tiles[2 * blockIdx.x];
+  const int r1 = tiles[2 * blockIdx.x + 1];
+  const int per = kStageBytes / L;  // rows per batch
+  const int n_batch = r1 > r0 ? (r1 - r0 + per - 1) / per : 0;
+  for (int b = 0; b < n_batch; ++b) {
+    __syncthreads();
+  }
+
+  // ---- the model, two threads a position ----
+  const int p = tid >> 1;
+}
+"""
+
 
 def _checkout_source(name):
     with open(os.path.join(_build.CSRC, name)) as f:
@@ -141,13 +171,16 @@ def _checkout_source(name):
     ("k2", "genotype.cu", ("model", "finish", "launch")),
     pytest.param("k2", K2_ONE_THREAD, ("model", "finish", "launch"),
                  id="k2-one-thread"),
+    pytest.param("k12", K12_TWO_THREAD, ("pileup", "model", "launch"),
+                 id="k12-two-thread"),
 ])
 def test_phase_cuts_apply_to_the_kernel_sources(kernel, source, cuts):
     """`tools/kernel_phases.py` times a kernel cut at its phase
     boundaries by editing lines of its source: on this checkout's source
     (and on K2's one-thread design, the parent it is timed against) every
     cut finds its line and changes the text, and the full variant is the
-    source itself."""
+    source itself; for K12 the occupancy probe appended to each variant
+    names the design's dynamic shared memory."""
     tool = _phase_tool()
     src = _checkout_source(source) if source.endswith(".cu") else source
     variants = getattr(tool, f"{kernel}_variants")(src)
@@ -157,3 +190,7 @@ def test_phase_cuts_apply_to_the_kernel_sources(kernel, source, cuts):
         assert variants[name] != src, name
     with pytest.raises(RuntimeError, match="matches"):
         getattr(tool, f"{kernel}_variants")("// no kernel here\n")
+    if kernel == "k12":
+        probe = tool.k12_occupancy(src)
+        assert "kp_resident_ctas" in probe
+        assert ("kDynSmem" in probe) == ("kDynSmem" in src)

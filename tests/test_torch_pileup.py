@@ -174,19 +174,32 @@ def k12_reads(case, seed=0):
     """(reads dict as the engine receives it, n_pos) for one K12 case:
     reads that straddle tile edges and start before 0 ("edges"), 5,000
     reads of mapq 59 over one position, which takes its mapq2 sum past
-    2^24 ("hot"), rows whose every byte is trimmed ("trimmed"), and reads
-    of up to 2,048 bases ("long")."""
+    2^24 ("hot"), rows whose every byte is trimmed ("trimmed"), reads
+    of up to 2,048 bases ("long"), rows of 64 bytes, K12's narrowest
+    ("short"), tiles that no row meets ("sparse"), n_pos not a multiple of
+    the tile, with rows before 0 and past n_pos ("ragged"), and min_qual 0
+    (`k12_min_qual`), where the trim decides whether a q = 0 byte counts
+    ("minq0")."""
     rng = np.random.default_rng(seed)
     n_pos, L, R = 4096, 256, 600
     if case == "long":
         n_pos, L, R = 8192, 2048, 300
     if case == "hot":
         R, L = 5000, 160
+    if case == "short":
+        L, R = 64, 2000
+    if case == "ragged":
+        n_pos = 4096 + 77
     lens = rng.integers(L // 2, L + 1, R)
     if case == "hot":
         lens[:] = 150
         starts = 2000 - rng.integers(0, 150, R)
         starts[:40] = rng.integers(-150, 0, 40)
+    elif case in ("sparse", "ragged"):
+        starts = rng.integers(-L, n_pos + 40, R)
+        if case == "sparse":  # nothing meets [1200, 2900)
+            starts = np.where(starts < 2048, starts % (1200 - L) - L // 2,
+                              2900 + starts % (n_pos - 2900))
     else:
         edge = PD.TILE * rng.integers(0, n_pos // PD.TILE + 1, R)
         starts = edge + rng.integers(-3, 4, R) - lens * (rng.random(R) < 0.5)
@@ -197,9 +210,11 @@ def k12_reads(case, seed=0):
         q = rng.integers(20, 44, size=(R, L))
     rd = ((q << 2) | rng.integers(0, 4, size=(R, L))).astype(np.uint8)
     rd[np.arange(L)[None, :] >= lens[:, None]] = 0
-    if case == "trimmed":
+    if case in ("trimmed", "minq0"):
         rd[::7] = 63 << 2
         rd[3::7] = 0
+    if case == "minq0":  # q = 0 bytes at the head of every fifth row
+        rd[1::5, :8] = rng.integers(0, 4, size=(len(rd[1::5]), 8))
     mapq = (np.full(R, 59) if case == "hot"
             else rng.integers(0, 61, R)).astype(np.int32)
     reads = {"rd": rd, "starts": starts.astype(np.int32),
@@ -208,6 +223,10 @@ def k12_reads(case, seed=0):
              "strand": rng.integers(0, 3, R).astype(np.int32),
              "mapq": mapq}
     return reads, n_pos
+
+
+def k12_min_qual(case):
+    return 0 if case == "minq0" else 20
 
 
 def k12_batch(reads, n_pos):
@@ -248,7 +267,8 @@ def tiled_pileup(batch, tiles, n_pos, min_qual):
     return counts2, qual_sum, mapq2
 
 
-K12_CASES = ["edges", "hot", "trimmed", "long"]
+K12_CASES = ["edges", "hot", "trimmed", "long", "short", "sparse",
+             "ragged", "minq0"]
 
 
 @pytest.mark.parametrize("case", K12_CASES)
@@ -268,10 +288,10 @@ def test_k12_tiles_cover_the_plain_pileup(case):
     unsorted = [raw] + [reads[k][shuffled] for k in
                         ("starts", "ori", "strand", "mapq")]
     want = [t.numpy() for t in PD.device_pileup_plain(
-        *as_torch(*unsorted), n_pos, 20)]
+        *as_torch(*unsorted), n_pos, k12_min_qual(case))]
     got_sorted = [t.numpy() for t in PD.device_pileup_plain(
-        *as_torch(*batch), n_pos, 20)]
-    c2, qs, m2 = tiled_pileup(batch, tiles, n_pos, 20)
+        *as_torch(*batch), n_pos, k12_min_qual(case))]
+    c2, qs, m2 = tiled_pileup(batch, tiles, n_pos, k12_min_qual(case))
     for a, b in zip(got_sorted, want):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(c2, want[0])
@@ -280,6 +300,11 @@ def test_k12_tiles_cover_the_plain_pileup(case):
     assert want[0].sum() > 0
     if case == "hot":
         assert (m2 >= 2**24).sum() > 0  # past f32's exact integers
+    if case == "sparse":
+        assert (tiles[:, 1] <= tiles[:, 0]).any()
+    if case == "ragged":
+        assert n_pos % PD.TILE and (starts < 0).any()
+        assert (starts + lens > n_pos).any()
 
 
 @pytest.mark.parametrize("case", K12_CASES)
@@ -296,11 +321,12 @@ def test_k12_plain_matches_fused_ll_dd(case):
     )
     tables = model_tables(ModelParams(), torch.float64, CPU)
     gp, mx, mg, off, q = (t.numpy() for t in PD.fused_ll_f64(
-        *as_torch(*batch, ref_codes), n_pos=n_pos, min_qual=20,
-        tables=tables, tiles=torch.from_numpy(tiles),
+        *as_torch(*batch, ref_codes), n_pos=n_pos,
+        min_qual=k12_min_qual(case), tables=tables, tiles=torch.from_numpy(tiles),
     ))
     hi, lo, j_q = jax_pd.fused_ll_dd(
-        *batch, ref_codes, n_pos=n_pos, min_qual=20, params=JaxParams(),
+        *batch, ref_codes, n_pos=n_pos, min_qual=k12_min_qual(case),
+        params=JaxParams(),
     )
     np.testing.assert_array_equal(q, np.asarray(j_q))
     w_gp, w_mx, w_mg, w_off = dd_finish(hi, lo)
@@ -334,9 +360,9 @@ def test_k12_matches_plain_on_card(case, dtype):
     tables = model_tables(ModelParams(), dtype, dev)
     n0 = K12.pileup_genotype.launches
     got = K12.pileup_genotype(*args, torch.from_numpy(tiles).to(dev), ref,
-                              n_pos, 20, tables)
+                              n_pos, k12_min_qual(case), tables)
     assert K12.pileup_genotype.launches == n0 + 1
-    c2, qs, m2 = PD.device_pileup_plain(*args, n_pos, 20)
+    c2, qs, m2 = PD.device_pileup_plain(*args, n_pos, k12_min_qual(case))
     want = (c2, qs, m2, *G.call_genotypes_pileup_plain(c2, qs, ref, tables))
     for i in (0, 1, 2, 7):
         assert torch.equal(got[i], want[i])

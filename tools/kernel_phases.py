@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a kernel's time goes, on one NVIDIA GPU.
 
-    python3 tools/kernel_phases.py k12
+    python3 tools/kernel_phases.py k12 [--src LABEL=PATH ...]
     python3 tools/kernel_phases.py k3 [--src LABEL=PATH ...]
     python3 tools/kernel_phases.py k2 [--src LABEL=PATH ...] [--whole]
 
@@ -10,14 +10,24 @@ nvcc. Builds one kernel source several times, each a variant cut at a
 phase boundary, all nvcc runs started together, and times each with
 `chip_smoke.device_ms` (CUDA graph replay, device time only).
 
-k12, `bs_call_tpu_torch/csrc/pileup_genotype.cu`, on `chip_smoke.py`'s
-K1 batch (4,096 reads x 256 bases over 32,832 positions), f64 and f32:
+k12, `bs_call_tpu_torch/csrc/pileup_genotype.cu`, on
+`chip_smoke.k12_batches` over 32,832 positions: (a) `read_batch`, 4,096
+random reads of up to 256 bases; (b) `wgbs_reads` at depth 18, 3,939
+reads of 150 bases, sorted and padded to L = 160 (`prepare_batch`);
+(b256) the same reads as the engine pads them (L = 256, a power-of-two
+row count, `tile_rows`); hot, 5,000 reads over one position (f64 only).
+f64 and f32:
 
 * full: the kernel as it ships;
 * pileup: stops after the tile's pileup planes are written;
 * model: skips the read batch and runs the model on synthetic counts
   (0-5 a category, quality 30);
 * launch: returns at once (the floor of one launch in a graph).
+
+K12's cuts know both designs of `pileup_genotype.cu`: two threads a
+position (the first) and a CTA of 16 warps a tile. Each version's ptxas
+line carries its resident CTAs a SM (`cudaOccupancyMaxActiveBlocksPer
+Multiprocessor`, at its block size and dynamic shared memory).
 
 k3, `bs_call_tpu_torch/csrc/emit.cu`, on `chip_smoke.k3_batch`'s two
 batches of 32,832 positions: (a) `genotype_inputs`, a het-rich random
@@ -88,22 +98,49 @@ def _cut(src: str, old: str, new: str) -> str:
 
 
 def k12_variants(src: str) -> dict:
+    # synthetic counts (0-5 a category, quality 30) in place of the pileup
     model = (
-        "const int n_batch = 0;\n"
         "  for (int j = tid; j < 16 * kStride; j += kThreads)\n"
         "    s_counts[j] = ((j * 7 + blockIdx.x) % 11) % 6;\n"
         "  for (int j = tid; j < 8 * kStride; j += kThreads)\n"
         "    s_qsum[j] = 30 * (((j * 7 + blockIdx.x) % 11) % 6);")
+    if "two threads a position ----" in src:  # the parent: 2 a position
+        model_cut = _cut(
+            src, re.escape("const int n_batch = r1 > r0 ? (r1 - r0 + per - 1)"
+                           " / per : 0;"),
+            "const int n_batch = 0;\n" + model.replace("\\", "\\\\"))
+        pileup = r"(?=  // ---- the model, two threads a position ----)"
+    else:  # a CTA of 16 warps a tile, the model on K2's task split
+        model_cut = _cut(src, r"const int n_stage = [^;]*;",
+                         "const int n_stage = 0;")
+        model_cut = _cut(model_cut, r"(?=  // ---- the pileup planes)",
+                         model.replace("\\", "\\\\") + "\n  __syncthreads();\n")
+        pileup = r"(?=  // ---- the model: )"
     return {
         "full": src,
-        "pileup": _cut(src, r"(?=  // ---- the model, two threads a position ----)",
-                       "  return;\n"),
-        "model": _cut(
-            src, re.escape("const int n_batch = r1 > r0 ? (r1 - r0 + per - 1)"
-                           " / per : 0;"), model.replace("\\", "\\\\")),
+        "pileup": _cut(src, pileup, "  return;\n"),
+        "model": model_cut,
         "launch": _cut(src, r"(?=  const int tid = threadIdx\.x;\n)",
                        "  if (n_pos > 0) return;\n"),
     }
+
+
+def k12_occupancy(src: str) -> str:
+    """C source appended to a K12 variant: `kp_resident_ctas(f64)`, the
+    CTAs of its kernel resident on one SM (the CUDA occupancy API), at
+    its block size and dynamic shared memory."""
+    dyn = "kDynSmem" if "kDynSmem" in src else "0"
+    body = []
+    for flag, t in ((1, "double"), (0, "float")):
+        attr = ("" if dyn == "0" else
+                f"cudaFuncSetAttribute(pileup_genotype_kernel<{t}>, "
+                f"cudaFuncAttributeMaxDynamicSharedMemorySize, {dyn});\n    ")
+        body.append(
+            f"  if (f64 == {flag}) {{\n    {attr}"
+            f"cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, "
+            f"pileup_genotype_kernel<{t}>, kThreads, {dyn});\n  }}\n")
+    return ("\nextern \"C\" int kp_resident_ctas(int f64) {\n"
+            "  int n = -1;\n" + "".join(body) + "  return n;\n}\n")
 
 
 _NO_HET = (re.escape("const bool het = covered && s_tab[kHet + mx];"),
@@ -152,10 +189,12 @@ def k2_variants(src: str) -> dict:
     }
 
 
-def build(versions: dict, variants, tmp: str) -> dict:
+def build(versions: dict, variants, tmp: str, extra=None) -> dict:
     """{(label, variant): ctypes library}, one nvcc per library, all
     started together; each version's headers are the `.cuh` files beside
-    its source."""
+    its source. `extra(src)`, if given, is C source appended to each
+    variant, and each version's full library then reports its resident
+    CTAs a SM (`kp_resident_ctas`) beside its ptxas line."""
     from bs_call_tpu_torch.ops.kernels import _build
 
     nvcc = _build._nvcc()
@@ -167,7 +206,7 @@ def build(versions: dict, variants, tmp: str) -> dict:
             d = os.path.join(tmp, label, name)
             os.makedirs(d)
             with open(os.path.join(d, "k.cu"), "w") as f:
-                f.write(text)
+                f.write(text + (extra(src) if extra else ""))
             for h in glob.glob(os.path.join(os.path.dirname(path), "*.cuh")):
                 shutil.copy(h, d)
             procs[label, name] = subprocess.Popen(
@@ -180,11 +219,15 @@ def build(versions: dict, variants, tmp: str) -> dict:
         out = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {key}:\n{out}")
+        libs[key] = ctypes.CDLL(os.path.join(tmp, *key, "k.so"))
         if key[1] == "full":
             regs = [ln.strip() for ln in out.splitlines()
                     if "registers" in ln or "spill" in ln]
+            if extra:
+                regs.append("resident CTAs a SM: f64 %d, f32 %d" % (
+                    libs[key].kp_resident_ctas(1),
+                    libs[key].kp_resident_ctas(0)))
             print(f"{key[0]} ptxas: " + " | ".join(regs), flush=True)
-        libs[key] = ctypes.CDLL(os.path.join(tmp, *key, "k.so"))
     return libs
 
 
@@ -259,9 +302,9 @@ def main(argv=None) -> int:
     card = S.card_line()
     tmp = tempfile.mkdtemp(prefix="kernel_phases_")
     try:
-        libs = build(versions, variants, tmp)
+        libs = build(versions, variants, tmp,
+                     k12_occupancy if args.kernel == "k12" else None)
         if args.kernel == "k12":
-            from bs_call_tpu_torch.ops.kernels import pileup_device as PD
             from bs_call_tpu_torch.ops.kernels import (
                 pileup_genotype_cuda as K,
             )
@@ -270,20 +313,17 @@ def main(argv=None) -> int:
                 model_tables,
             )
 
-            n = S.N_POS
-            batch = S.read_batch(np, 4096, 256, n, 1)
-            R, L = batch[0].shape
-            tiles = torch.from_numpy(PD.tile_rows(batch[1], R, n, L)).to(dev)
-            kargs = [torch.from_numpy(a).to(dev) for a in batch]
-            ref = torch.from_numpy(
-                np.random.default_rng(4).integers(0, 5, n).astype(np.int32)
-            ).to(dev)
             calls = {}
-            for dtype in (torch.float64, torch.float32):
-                tables = model_tables(ModelParams(), dtype, dev)
-                calls[f" {str(dtype)[6:]}"] = (
-                    lambda t=tables: K.pileup_genotype(*kargs, tiles, ref, n,
-                                                       20, t))
+            for kind, (batch, tiles, ref) in S.k12_batches(
+                    torch, np, dev).items():
+                n = len(ref)
+                for dtype in (torch.float64, torch.float32):
+                    if kind == "hot" and dtype == torch.float32:
+                        continue  # f32 off the main path: not at depth 5,000
+                    tables = model_tables(ModelParams(), dtype, dev)
+                    calls[f" {str(dtype)[6:]} batch {kind}"] = (
+                        lambda b=batch, tl=tiles, r=ref, n=n, t=tables:
+                        K.pileup_genotype(*b, tl, r, n, 20, t))
         elif args.kernel == "k2":
             from bs_call_tpu_torch.ops.kernels import genotype_cuda as K
             from bs_call_tpu_torch.ops.params import (
