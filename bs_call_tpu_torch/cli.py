@@ -82,6 +82,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     # Misc
     p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument(
+        "--trace-file", default=None, metavar="PATH",
+        help="keep every span of the job (ingest, call and emit stages "
+        "on their threads, with block ids) and write them to PATH as "
+        "Chrome trace JSON (Perfetto)",
+    )
     p.add_argument("-t", "--threads", default=None)
     # Engine
     p.add_argument(
@@ -257,7 +263,11 @@ def main(argv=None, tracer=None):
     """CLI entry. `tracer` (a `bs_call_tpu_torch.utils.trace.Tracer`), when
     given, collects stage times and per-tier position counts (of a
     sharded run, the workers' counts and kernel launches summed; of a
-    multi-host run, this host's)."""
+    multi-host run, this host's); else the job builds its own, which
+    keeps spans under `--trace-file` (this process's: a sharded run's
+    workers keep theirs)."""
+    from bs_call_tpu_torch.utils.trace import Tracer
+
     args = build_parser().parse_args(argv)
     if not args.reference:
         print(
@@ -268,6 +278,20 @@ def main(argv=None, tracer=None):
     if not args.input_file:
         args.input_file = "-"
     cfg = args_to_config(args)
+    if tracer is None:
+        tracer = Tracer(enabled=cfg.verbose, spans=bool(args.trace_file))
+    elif args.trace_file and tracer.spans is None:
+        print("--trace-file needs a tracer that keeps spans",
+              file=sys.stderr)
+        return 1
+    rc = _main(args, cfg, tracer)
+    if args.trace_file:
+        tracer.write_chrome_trace(args.trace_file)
+    return rc
+
+
+def _main(args, cfg, tracer):
+    """`main`'s job on `tracer`: an exit code."""
     if args.num_hosts and args.num_hosts > 1:
         return _run_multihost(args, cfg, tracer)
     if args.shards and args.shards > 1:
@@ -297,7 +321,7 @@ def main(argv=None, tracer=None):
     if cfg.report_file and stats is not None:
         from bs_call_tpu_torch.stats.report import write_report
 
-        with open(cfg.report_file, "w") as f:
+        with tracer.stage("job.report"), open(cfg.report_file, "w") as f:
             write_report(f, cfg, stats, table, dbsnp=cfg.dbsnp_file)
     return 0
 

@@ -35,6 +35,7 @@ from bs_call_tpu_torch.output.site import (
     CFLAG,
     GFLAG,
 )
+from bs_call_tpu_torch.utils.trace import NULL_TRACER
 
 # ---- static LUT construction ----
 
@@ -453,6 +454,7 @@ class VectorBlockEmitter:
         self.prev_cpg_flt = False
         self._nacc = None  # native stats accumulator (lazy)
         self._nacc_tried = False
+        self.tracer = NULL_TRACER  # the runner sets the job's
 
     def finalize_stats(self, table) -> None:
         """Fold natively accumulated report counters into self.stats
@@ -474,196 +476,209 @@ class VectorBlockEmitter:
         head/tail padding. Cross-chunk dedup rides the existing old_x
         gate (already-emitted and uncovered rows never re-enter `reach`),
         so output and stats are byte-identical to one whole-block call.
+
+        Stages on `self.tracer`: `emit.dbsnp` (the contig's dbSNP bins,
+        range flags, rs ids), `emit.prep`, `emit.stats`, `emit.format`.
         """
+        tr = self.tracer
         sz = y - x + 1
-        covered = soa["covered"]
-        gt1 = np.where(covered, soa["max_gt"] + 1, 0).astype(np.int32)
         if self.old_ctg is not ctg:
             self.old_ctg = ctg
             self.old_x = 0
-        if self.dbsnp is not None and self._dbsnp_ctg_name != ctg.name:
-            self._dbsnp_ctg = self.dbsnp.load_contig(ctg.name)
-            self._dbsnp_ctg_name = ctg.name
-
-        # genotype 5-windows with stale-tail padding
-        G_ext = np.concatenate(
-            [np.zeros(2, np.int32), gt1, np.repeat(gt1[-1:], 2)]
-        )
-        g5 = sliding_window_view(G_ext, 5)  # [sz, 5]
-
-        # reference 7-windows with strncpy truncation; rows 0,1 and the two
-        # flush rows need scalar fixups
-        ref_window = np.asarray(ref_window, dtype=np.uint8)
-        T = _truncate_win1d(ref_window[: sz + 2], 7)  # [sz-4, 7]
-        rf7 = np.zeros((sz, 7), dtype=np.uint8)
-        rf7[2 : sz - 2] = T[: sz - 4]
-        # first two positions: push offsets < 4 (print_vcf.c:576-580)
-        t0 = _truncate_ctx(ref_window[None, :5])[0]
-        rf7[0, 2:7] = t0
-        t1 = _truncate_ctx(ref_window[None, :6])[0]
-        rf7[1, 1:7] = t1
-        # flush rows: shifted copies of the push-y window
-        o = _truncate_ctx(ref_window[None, sz - 5 : sz + 2])[0]
-        rf7[sz - 2] = np.concatenate([o[1:7], o[6:7]])
-        rf7[sz - 1] = np.concatenate([o[2:7], o[6:7], o[6:7]])
-
-        rfix = rf7[:, 2].astype(np.int32)
-        gt = g5[:, 2] - 1  # -1 where uncovered
-
-        # emission gating (covered, dedup, hom-ref skip, contig length)
-        pos = np.arange(x, y + 1)
-        reach = covered & (pos > self.old_x)
-        if hold_back:
-            reach = reach & (pos <= y - hold_back)
-        if reach.any():
-            self.old_x = int(pos[reach].max())
-        gtc = np.maximum(gt, 0)
         rs_present = rs_selected = None
-        if self._dbsnp_ctg is not None:
-            rs_present, rs_selected = self._dbsnp_ctg.range_flags(x, y)
-        skip_homref = GT_FLAG_A[gtc, rfix] & (not self.cfg.all_positions)
-        if rs_selected is not None:
-            # maf-selected dbSNP sites force emission (print_vcf.c:139)
-            skip_homref &= ~rs_selected
-        skip_len = pos > ctg.seq_len
-        emit = reach & ~skip_homref & ~skip_len
-        idx = np.nonzero(emit)[0]
-        if len(idx) == 0 and not (self.stats is not None and reach.any()):
-            return
+        if self.dbsnp is not None:
+            with tr.stage("emit.dbsnp"):
+                if self._dbsnp_ctg_name != ctg.name:
+                    self._dbsnp_ctg = self.dbsnp.load_contig(ctg.name)
+                    self._dbsnp_ctg_name = ctg.name
+                if self._dbsnp_ctg is not None:
+                    rs_present, rs_selected = self._dbsnp_ctg.range_flags(
+                        x, y)
+        with tr.stage("emit.prep"):
+            covered = soa["covered"]
+            gt1 = np.where(covered, soa["max_gt"] + 1, 0).astype(np.int32)
 
-        counts = soa["counts"][idx]
-        quals = soa["quals"][idx]
-        gt_prob = soa["gt_prob"][idx]
-        g = gtc[idx]
-        r = rfix[idx]
-        mq = soa["mq"][idx]
-        fs = soa["fs"][idx]
-        n = len(idx)
-
-        g1 = g5[idx, 1]
-        g2 = g5[idx, 2]
-        g3 = g5[idx, 3]
-        prep = _splice_dev_prep(
-            soa, idx, counts, gt_prob, g, r, mq, fs, g1, g2, g3
-        )
-        if prep is None:
-            prep = _native_emit_prep(
-                n, counts, gt_prob, g, r, mq, fs, g1, g2, g3
+            # genotype 5-windows with stale-tail padding
+            G_ext = np.concatenate(
+                [np.zeros(2, np.int32), gt1, np.repeat(gt1[-1:], 2)]
             )
-        if prep is not None:
-            (phred, dp1, qd, fs_int, flt, mac1, gl_vals, gl_len,
-             cg_code, cond_cg, het_arr) = prep
-            c = counts
-        else:
-            het_arr = None
-            # phred (print_vcf.c:140-148): the vectorized libm-rescue
-            # implementation is shared with the stats path
-            from bs_call_tpu_torch.ops.postprocess import phred_scores
+            g5 = sliding_window_view(G_ext, 5)  # [sz, 5]
 
-            phred = phred_scores(gt_prob, g).astype(np.int64)
+            # reference 7-windows with strncpy truncation; rows 0,1 and the two
+            # flush rows need scalar fixups
+            ref_window = np.asarray(ref_window, dtype=np.uint8)
+            T = _truncate_win1d(ref_window[: sz + 2], 7)  # [sz-4, 7]
+            rf7 = np.zeros((sz, 7), dtype=np.uint8)
+            rf7[2 : sz - 2] = T[: sz - 4]
+            # first two positions: push offsets < 4 (print_vcf.c:576-580)
+            t0 = _truncate_ctx(ref_window[None, :5])[0]
+            rf7[0, 2:7] = t0
+            t1 = _truncate_ctx(ref_window[None, :6])[0]
+            rf7[1, 1:7] = t1
+            # flush rows: shifted copies of the push-y window
+            o = _truncate_ctx(ref_window[None, sz - 5 : sz + 2])[0]
+            rf7[sz - 2] = np.concatenate([o[1:7], o[6:7]])
+            rf7[sz - 1] = np.concatenate([o[2:7], o[6:7], o[6:7]])
 
-            dp1 = counts[:, :4].sum(axis=1)
-            fs_int = np.trunc(-fs * 10.0 + 0.5).astype(np.int64)
-            qd = np.where(dp1 > 0, phred // np.maximum(dp1, 1), phred)
-            flt = (
-                (phred < 20).astype(np.int64)
-                | ((qd < 2).astype(np.int64) << 1)
-                | ((fs_int > 60).astype(np.int64) << 2)
-                | ((mq < 40).astype(np.int64) << 3)
+            rfix = rf7[:, 2].astype(np.int32)
+            gt = g5[:, 2] - 1  # -1 where uncovered
+
+            # emission gating (covered, dedup, hom-ref skip, contig length)
+            pos = np.arange(x, y + 1)
+            reach = covered & (pos > self.old_x)
+            if hold_back:
+                reach = reach & (pos <= y - hold_back)
+            if reach.any():
+                self.old_x = int(pos[reach].max())
+            gtc = np.maximum(gt, 0)
+            skip_homref = GT_FLAG_A[gtc, rfix] & (not self.cfg.all_positions)
+            if rs_selected is not None:
+                # maf-selected dbSNP sites force emission (print_vcf.c:139)
+                skip_homref &= ~rs_selected
+            skip_len = pos > ctg.seq_len
+            emit = reach & ~skip_homref & ~skip_len
+            idx = np.nonzero(emit)[0]
+            if len(idx) == 0 and not (self.stats is not None and reach.any()):
+                return
+
+            counts = soa["counts"][idx]
+            quals = soa["quals"][idx]
+            gt_prob = soa["gt_prob"][idx]
+            g = gtc[idx]
+            r = rfix[idx]
+            mq = soa["mq"][idx]
+            fs = soa["fs"][idx]
+            n = len(idx)
+
+            g1 = g5[idx, 1]
+            g2 = g5[idx, 2]
+            g3 = g5[idx, 3]
+            prep = _splice_dev_prep(
+                soa, idx, counts, gt_prob, g, r, mq, fs, g1, g2, g3
             )
-            # mac1 (print_vcf.c:192-212; shared table in postprocess)
-            from bs_call_tpu_torch.ops.postprocess import MAC_CATS
+            if prep is None:
+                prep = _native_emit_prep(
+                    n, counts, gt_prob, g, r, mq, fs, g1, g2, g3
+                )
+            if prep is not None:
+                (phred, dp1, qd, fs_int, flt, mac1, gl_vals, gl_len,
+                 cg_code, cond_cg, het_arr) = prep
+                c = counts
+            else:
+                het_arr = None
+                # phred (print_vcf.c:140-148): the vectorized libm-rescue
+                # implementation is shared with the stats path
+                from bs_call_tpu_torch.ops.postprocess import phred_scores
 
-            c = counts
-            mac1 = np.zeros(n, dtype=bool)
-            for gv, (sa, sb) in MAC_CATS.items():
-                m = g == gv
-                if m.any():
-                    mac1[m] = (c[m][:, list(sa)].sum(axis=1) <= 1) | (
-                        c[m][:, list(sb)].sum(axis=1) <= 1
-                    )
-            mac1 &= flt == 0
+                phred = phred_scores(gt_prob, g).astype(np.int64)
 
-            # GL values (float32-rounded for %g formatting)
-            gl_idx = GL_IDX[g, r]  # [n, 5]
-            gl_len = GL_LEN[g, r]
-            safe = np.maximum(gl_idx, 0)
-            gl_vals = gt_prob[np.arange(n)[:, None], safe]
-            gl_vals = np.maximum(gl_vals, -99.999)
-            gl_vals = np.where(gl_idx == -2, -99.999, gl_vals)
-            gl_vals = gl_vals.astype(np.float32)
+                dp1 = counts[:, :4].sum(axis=1)
+                fs_int = np.trunc(-fs * 10.0 + 0.5).astype(np.int64)
+                qd = np.where(dp1 > 0, phred // np.maximum(dp1, 1), phred)
+                flt = (
+                    (phred < 20).astype(np.int64)
+                    | ((qd < 2).astype(np.int64) << 1)
+                    | ((fs_int > 60).astype(np.int64) << 2)
+                    | ((mq < 40).astype(np.int64) << 3)
+                )
+                # mac1 (print_vcf.c:192-212; shared table in postprocess)
+                from bs_call_tpu_torch.ops.postprocess import MAC_CATS
 
-            # CpG status automaton (print_vcf.c:227-266), vectorized
-            g1c = np.maximum(g1 - 1, 0)
-            g3c = np.maximum(g3 - 1, 0)
+                c = counts
+                mac1 = np.zeros(n, dtype=bool)
+                for gv, (sa, sb) in MAC_CATS.items():
+                    m = g == gv
+                    if m.any():
+                        mac1[m] = (c[m][:, list(sa)].sum(axis=1) <= 1) | (
+                            c[m][:, list(sb)].sum(axis=1) <= 1
+                        )
+                mac1 &= flt == 0
 
-            def hn(neigh, neigh_flag):
-                return np.where(
-                    neigh > 0, np.where(neigh_flag, 72, 78), 63
-                )  # 'H','N','?'
+                # GL values (float32-rounded for %g formatting)
+                gl_idx = GL_IDX[g, r]  # [n, 5]
+                gl_len = GL_LEN[g, r]
+                safe = np.maximum(gl_idx, 0)
+                gl_vals = gt_prob[np.arange(n)[:, None], safe]
+                gl_vals = np.maximum(gl_vals, -99.999)
+                gl_vals = np.where(gl_idx == -2, -99.999, gl_vals)
+                gl_vals = gl_vals.astype(np.float32)
 
-            cond_cg = ((g2 == 5) & (g3 == 8)) | ((g2 == 8) & (g1 == 5))
-            cond_c = g2 == 5
-            cond_g = g2 == 8
-            cond_cf = CFLAG_A[g]
-            cond_gf = GFLAG_A[g]
-            branch_c = hn(g3, GFLAG_A[g3c])
-            branch_g = hn(g1, CFLAG_A[g1c])
-            branch_gf = np.where(
-                g1 > 0, np.where(CFLAG_A[g1c], 72, 78), ord(".")
-            )
-            # 'CG' is two chars; cond_cg rows override the code below
-            cg_code = np.select(
-                [cond_cg, cond_c, cond_g, cond_cf, cond_gf],
-                [ord("G"), branch_c, branch_g, branch_c, branch_gf],
-                ord("."),
-            )
+                # CpG status automaton (print_vcf.c:227-266), vectorized
+                g1c = np.maximum(g1 - 1, 0)
+                g3c = np.maximum(g3 - 1, 0)
 
-        # context strings
-        # kept as bytes end to end: the native formatters take them
-        # verbatim and a decode/encode round-trip of 10n chars per block
-        # was measurable in the emit stage
-        prf_all = PBASE_B[rf7[idx, :5]].tobytes()
-        ctx_all = IUPAC_B[g5[idx]].tobytes()
+                def hn(neigh, neigh_flag):
+                    return np.where(
+                        neigh > 0, np.where(neigh_flag, 72, 78), 63
+                    )  # 'H','N','?'
 
-        pos_e = pos[idx]
-        het = het_arr if het_arr is not None else GT_HET_A[g]
+                cond_cg = ((g2 == 5) & (g3 == 8)) | ((g2 == 8) & (g1 == 5))
+                cond_c = g2 == 5
+                cond_g = g2 == 8
+                cond_cf = CFLAG_A[g]
+                cond_gf = GFLAG_A[g]
+                branch_c = hn(g3, GFLAG_A[g3c])
+                branch_g = hn(g1, CFLAG_A[g1c])
+                branch_gf = np.where(
+                    g1 > 0, np.where(CFLAG_A[g1c], 72, 78), ord(".")
+                )
+                # 'CG' is two chars; cond_cg rows override the code below
+                cg_code = np.select(
+                    [cond_cg, cond_c, cond_g, cond_cf, cond_gf],
+                    [ord("G"), branch_c, branch_g, branch_c, branch_gf],
+                    ord("."),
+                )
+
+            # context strings
+            # kept as bytes end to end: the native formatters take them
+            # verbatim and a decode/encode round-trip of 10n chars per block
+            # was measurable in the emit stage
+            prf_all = PBASE_B[rf7[idx, :5]].tobytes()
+            ctx_all = IUPAC_B[g5[idx]].tobytes()
+
+            pos_e = pos[idx]
+            het = het_arr if het_arr is not None else GT_HET_A[g]
+
         # rs IDs for emitted rows
         rs_ids = None
         if rs_present is not None:
-            rs_ids = [None] * n
-            for i in np.nonzero(rs_present[idx])[0]:
-                _, rs_ids[i] = self._dbsnp_ctg.lookup(int(pos_e[i]))
+            with tr.stage("emit.dbsnp"):
+                rs_ids = [None] * n
+                for i in np.nonzero(rs_present[idx])[0]:
+                    _, rs_ids[i] = self._dbsnp_ctg.lookup(int(pos_e[i]))
 
         if self.stats is not None:
-            self._accumulate_stats(
-                ctg, soa, pos, reach, idx, g, r, rf7, phred, qd, fs_int,
-                mq, flt, mac1, counts, cond_cg, rs_present, rs_selected,
-            )
-
-        q8 = quals
-        if self._bcf is not None:
-            if n:
-                ok = _native_format_bcf(
-                    self._bcf, ctg, n, g, r, flt, mac1, prf_all, ctx_all,
-                    phred, dp1, mq, qd, gl_vals, gl_len, c, q8, cond_cg,
-                    cg_code, het, fs_int, pos_e, rs_ids,
+            with tr.stage("emit.stats"):
+                self._accumulate_stats(
+                    ctg, soa, pos, reach, idx, g, r, rf7, phred, qd,
+                    fs_int, mq, flt, mac1, counts, cond_cg, rs_present,
+                    rs_selected,
                 )
-                if not ok:
-                    raise RuntimeError("native BCF formatter unavailable")
-            return
-        if n and _native_format(
-            self._f, ctg, n, g, r, flt, mac1, prf_all, ctx_all, phred,
-            dp1, mq, qd, gl_vals, gl_len, c, q8, cond_cg, cg_code, het,
-            fs_int, pos_e, rs_ids,
-        ):
-            return
-        lines = self._format_rows(
-            ctg, n, g, r, flt, mac1, prf_all, ctx_all, phred, dp1, mq, qd,
-            gl_vals, gl_len, c, q8, cond_cg, cg_code, het, fs_int, pos_e,
-            rs_ids,
-        )
-        self._f.write("".join(lines).encode())
+
+        with tr.stage("emit.format"):
+            q8 = quals
+            if self._bcf is not None:
+                if n:
+                    ok = _native_format_bcf(
+                        self._bcf, ctg, n, g, r, flt, mac1, prf_all, ctx_all,
+                        phred, dp1, mq, qd, gl_vals, gl_len, c, q8, cond_cg,
+                        cg_code, het, fs_int, pos_e, rs_ids,
+                    )
+                    if not ok:
+                        raise RuntimeError("native BCF formatter unavailable")
+                return
+            if n and _native_format(
+                self._f, ctg, n, g, r, flt, mac1, prf_all, ctx_all, phred,
+                dp1, mq, qd, gl_vals, gl_len, c, q8, cond_cg, cg_code, het,
+                fs_int, pos_e, rs_ids,
+            ):
+                return
+            lines = self._format_rows(
+                ctg, n, g, r, flt, mac1, prf_all, ctx_all, phred, dp1, mq, qd,
+                gl_vals, gl_len, c, q8, cond_cg, cg_code, het, fs_int, pos_e,
+                rs_ids,
+            )
+            self._f.write("".join(lines).encode())
 
     def _format_rows(
         self, ctg, n, g, r, flt, mac1, prf_all, ctx_all, phred, dp1, mq,

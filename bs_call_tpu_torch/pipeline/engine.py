@@ -80,6 +80,7 @@ from bs_call_tpu_torch.parallel.sharding import (
     sharded_call_genotypes,
 )
 from bs_call_tpu_torch.utils import env_flag
+from bs_call_tpu_torch.utils.trace import NULL_TRACER
 
 TIERS = ("fused", "column", "oracle", "shape_reroute", "quals_reroute",
          "emit", "emit_risk")
@@ -132,7 +133,7 @@ class TorchCallEngine:
         self.cfg = cfg
         self.devices = list(devices or engine_devices(device))
         self.device = self.devices[0]
-        self.tracer = None  # set by the runner for -v observability
+        self.tracer = NULL_TRACER  # the runner sets the job's
         params = ModelParams(
             under_conv=cfg.under_conv,
             over_conv=cfg.over_conv,
@@ -170,7 +171,14 @@ class TorchCallEngine:
         return p
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        a = np.ascontiguousarray(a)
+        self.tracer.count("h2d_bytes", a.nbytes)
+        return torch.from_numpy(a).to(self.device)
+
+    def _to_host(self, t: torch.Tensor) -> np.ndarray:
+        a = t.cpu().numpy()
+        self.tracer.count("d2h_bytes", a.nbytes)
+        return a
 
     def _call_fused(self, reads: dict, lo: int, hi: int, ref_codes, agg,
                     covered_idx):
@@ -180,77 +188,90 @@ class TorchCallEngine:
         aggregate, or None to hand the chunk to the column tier. prep is
         the emit tier's dict of window-aligned numpy views ([:sz] of the
         packed buffer, `emit_device.unpack_fields`), with quals-mismatch
-        rows flagged risky, or None when the tier is off."""
-        sz = hi - lo + 1
-        # runner chunks are at most max(batch_positions, 1024) + 16 wide
-        n_pos = max(self.cfg.batch_positions, 1024) + self._FUSED_PAD
-        L = reads["rd"].shape[1]
-        n_cov = len(covered_idx)
-        padded = None
-        if sz <= n_pos and L <= 2048:
-            starts = reads["starts"]
-            n_rows = int(
-                ((starts <= hi) & (starts + reads["lens"] - 1 >= lo)).sum()
-            )
-            r_pad = self._pow2(max(n_rows, 1), 1024)
-            l_cap = self._pow2(L, 64)
-            padded = pad_read_batch(reads, lo, hi, r_pad, l_cap)
-        if padded is None:
-            self._reroute("shape", n_cov, f"{sz} positions, reads {L} long")
-            return None
-        ref_pad = np.zeros(n_pos, np.int32)
-        ref_pad[:sz] = np.asarray(ref_codes, dtype=np.int32)
-        tiles = tile_rows(padded[1], n_rows, n_pos, l_cap)
-        if len(self.devices) > 1:
-            # each device copies its slab's rows from the host
-            args = (self.devices, *(torch.from_numpy(np.ascontiguousarray(a))
-                                    for a in (*padded, ref_pad)))
-            kw = dict(tables=self._tables, tiles=tiles)
-            model, with_emit = sharded_fused_ll_f64, sharded_fused_ll_emit
-            emit = self._emit_tables
-        else:
-            args = [self._to_device(a) for a in (*padded, ref_pad)]
-            kw = dict(tables=self._tables[0], tiles=self._to_device(tiles))
-            model, with_emit = fused_ll_f64, fused_ll_emit
-            emit = self._emit_tables[0]
+        rows flagged risky, or None when the tier is off. Stages
+        `call.prep`, `call.h2d`, `call.launch`, `call.d2h` (which waits
+        for the card) and `call.finish`; counters `h2d_bytes` and
+        `d2h_bytes` (over a mesh, the host batch once: rows two slabs
+        share cross twice)."""
+        tr = self.tracer
+        with tr.stage("call.prep"):
+            sz = hi - lo + 1
+            # runner chunks are at most max(batch_positions, 1024) + 16
+            n_pos = max(self.cfg.batch_positions, 1024) + self._FUSED_PAD
+            L = reads["rd"].shape[1]
+            n_cov = len(covered_idx)
+            padded = None
+            if sz <= n_pos and L <= 2048:
+                starts = reads["starts"]
+                n_rows = int(((starts <= hi)
+                              & (starts + reads["lens"] - 1 >= lo)).sum())
+                r_pad = self._pow2(max(n_rows, 1), 1024)
+                l_cap = self._pow2(L, 64)
+                padded = pad_read_batch(reads, lo, hi, r_pad, l_cap)
+            if padded is None:
+                self._reroute("shape", n_cov,
+                              f"{sz} positions, reads {L} long")
+                return None
+            ref_pad = np.zeros(n_pos, np.int32)
+            ref_pad[:sz] = np.asarray(ref_codes, dtype=np.int32)
+            tiles = tile_rows(padded[1], n_rows, n_pos, l_cap)
+        with tr.stage("call.h2d"):
+            if len(self.devices) > 1:
+                # each device copies its slab's rows from the host
+                host = [np.ascontiguousarray(a) for a in (*padded, ref_pad)]
+                tr.count("h2d_bytes",
+                         sum(a.nbytes for a in host) + tiles.nbytes)
+                args = (self.devices, *map(torch.from_numpy, host))
+                kw = dict(tables=self._tables, tiles=tiles)
+                model, with_emit = sharded_fused_ll_f64, sharded_fused_ll_emit
+                emit = self._emit_tables
+            else:
+                args = [self._to_device(a) for a in (*padded, ref_pad)]
+                kw = dict(tables=self._tables[0],
+                          tiles=self._to_device(tiles))
+                model, with_emit = fused_ll_f64, fused_ll_emit
+                emit = self._emit_tables[0]
+            idx = self._to_device(covered_idx.astype(np.int64))
         kw.update(n_pos=n_pos, min_qual=self.cfg.min_qual)
         packed = None
-        if self._emit_tier:
-            *out, packed = with_emit(*args, **kw, emit=emit,
-                                     quirk=self.cfg.reference_quirks)
-        else:
-            out = model(*args, **kw)
-        idx = self._to_device(covered_idx.astype(np.int64))
-        gt_prob, max_gt, margin, off, dev_q = (
-            t.index_select(0, idx).cpu().numpy() for t in out
-        )
-        mism = (dev_q.astype(np.int32) != agg["quals"][covered_idx]).any(
-            axis=1
-        )
-        n_mism = int(mism.sum())
-        if n_mism > max(16, n_cov // 100):
-            self._reroute("quals", n_cov, f"{n_mism} quals mismatches")
-            return None
-        margin[mism] = 0.0  # the oracle recomputes these from host inputs
-        self.tier_positions["fused"] += n_cov
-        self.fused_chunks += 1
-        prep = None
-        if packed is not None:
-            prep = unpack_fields(packed.cpu().numpy(), n_pos, sz)
-            prep["fs_lo"] = np.zeros(sz)
-            # the device built these rows from quals the host disagrees
-            # with: their fields are stale
-            prep["risk"][covered_idx[mism]] = True
-            self.tier_positions["emit"] += n_cov
-            self.tier_positions["emit_risk"] += int(
-                prep["risk"][covered_idx].sum()
+        with tr.stage("call.launch"):
+            if self._emit_tier:
+                *out, packed = with_emit(*args, **kw, emit=emit,
+                                         quirk=self.cfg.reference_quirks)
+            else:
+                out = model(*args, **kw)
+        with tr.stage("call.d2h"):
+            gt_prob, max_gt, margin, off, dev_q = (
+                self._to_host(t.index_select(0, idx)) for t in out
             )
+            if packed is not None:
+                packed = self._to_host(packed)
+        with tr.stage("call.finish"):
+            mism = (dev_q.astype(np.int32)
+                    != agg["quals"][covered_idx]).any(axis=1)
+            n_mism = int(mism.sum())
+            if n_mism > max(16, n_cov // 100):
+                self._reroute("quals", n_cov, f"{n_mism} quals mismatches")
+                return None
+            margin[mism] = 0.0  # the oracle recomputes these from host inputs
+            self.tier_positions["fused"] += n_cov
+            self.fused_chunks += 1
+            prep = None
+            if packed is not None:
+                prep = unpack_fields(packed, n_pos, sz)
+                prep["fs_lo"] = np.zeros(sz)
+                # the device built these rows from quals the host
+                # disagrees with: their fields are stale
+                prep["risk"][covered_idx[mism]] = True
+                self.tier_positions["emit"] += n_cov
+                self.tier_positions["emit_risk"] += int(
+                    prep["risk"][covered_idx].sum()
+                )
         return gt_prob, max_gt, margin, off, prep
 
     def _reroute(self, why: str, n: int, detail: str) -> None:
         self.tier_positions[f"{why}_reroute"] += n
-        if self.tracer is not None:
-            self.tracer.progress(f"fused tier -> column tier ({detail})")
+        self.tracer.progress(f"fused tier -> column tier ({detail})")
 
     def _call_batch(self, counts, quals, ref):
         """Column tier: K2 over fixed chunks of `batch_positions`
@@ -283,17 +304,25 @@ class TorchCallEngine:
         allocated and read on one stream. Over several devices
         `sharded_call_genotypes` copies each slab from the slot's pinned
         inputs, and the D2H leaves the first device. `finish` waits for
-        the slot's event."""
-        devices, tables = self.devices, self._tables
+        the slot's event. Each dispatch counts the slot's inputs as
+        `h2d_bytes` and its outputs as `d2h_bytes`, on any device."""
+        devices, tables, tr = self.devices, self._tables, self.tracer
 
         def k2(*args):
             if len(devices) > 1:
                 return sharded_call_genotypes(devices, *args, tables)
             return call_genotypes(*args, tables[0])
 
+        def count(inputs, outputs):
+            tr.count("h2d_bytes", sum(a.nbytes for a in inputs))
+            tr.count("d2h_bytes",
+                     sum(t.element_size() * t.numel() for t in outputs))
+
         if self.device.type != "cuda":
             def dispatch(slot):
-                return k2(*(torch.from_numpy(a) for a in slot.inputs))
+                res = k2(*(torch.from_numpy(a) for a in slot.inputs))
+                count(slot.inputs, res)
+                return res
 
             def finish(res):
                 return [t.numpy() for t in res]
@@ -312,6 +341,7 @@ class TorchCallEngine:
                 res = k2(*slot.dev_in)
             for h, t in zip(slot.host_out, res):
                 h.copy_(t, non_blocking=True)
+            count(slot.inputs, res)
             slot.done.record(torch.cuda.current_stream(dev))
             return slot
 
@@ -401,68 +431,77 @@ class TorchCallEngine:
         `agg` may carry natively precomputed aggregates. `reads`, when
         given, is (read_batch_dict, lo) with lo the block-relative
         offset of this window's first position: it enables the fused
-        tier (reads cross H2D instead of pileup columns)."""
-        if agg is None:
-            agg = aggregate_pileup(counts2, qual_sum, mapq2_sum)
-        counts = agg["counts"]
-        sz = len(agg["n"])
-        covered_mask = agg["n"] > 0
-        covered = np.nonzero(covered_mask)[0]
-        gt_prob_full = np.zeros((sz, 10), dtype=np.float64)
-        max_gt_full = np.zeros(sz, dtype=np.int32)
-        fs_full = np.zeros(sz, dtype=np.float64)
+        tier (reads cross H2D instead of pileup columns). Stages on
+        `self.tracer`: `call.prep`, `_call_fused`'s, `call.column` (the
+        column tier) and `call.finish` (`_finish_exact`, the emit tier's
+        risk bands, the host Fisher test)."""
+        tr = self.tracer
+        with tr.stage("call.prep"):
+            if agg is None:
+                agg = aggregate_pileup(counts2, qual_sum, mapq2_sum)
+            counts = agg["counts"]
+            sz = len(agg["n"])
+            covered_mask = agg["n"] > 0
+            covered = np.nonzero(covered_mask)[0]
+            gt_prob_full = np.zeros((sz, 10), dtype=np.float64)
+            max_gt_full = np.zeros(sz, dtype=np.int32)
+            fs_full = np.zeros(sz, dtype=np.float64)
+            if len(covered):
+                ccounts = counts[covered].astype(np.int32)
+                cquals = agg["quals"][covered]
+                cref = np.asarray(ref_codes, dtype=np.int32)[covered]
         prep = None
         if len(covered):
-            ccounts = counts[covered].astype(np.int32)
-            cquals = agg["quals"][covered]
-            cref = np.asarray(ref_codes, dtype=np.int32)[covered]
-            res = None
+            fused = None
             if reads is not None and self.cfg.exact:
                 rd_dict, lo = reads
-                res = self._call_fused(
+                fused = self._call_fused(
                     rd_dict, lo, lo + sz - 1, ref_codes, agg, covered
                 )
-                if res is not None:
-                    prep = res[4]
-                    res = self._finish_exact(*res[:4], ccounts, cquals, cref)
-            if res is None:
-                res = self._call_batch(ccounts, cquals, cref)
-            gt_prob, max_gt, margin, _off = res
-            gt_prob_full[covered] = gt_prob
-            max_gt_full[covered] = max_gt
-            if prep is not None:
-                # host-side staleness: any row the exact tiers rescued
-                # (ll tie / quals mismatch -> margin 0, or a changed
-                # winner) invalidates its own prep AND its neighbours'
-                # CG context; the device fs then carries only rows the
-                # guard bands certify, the host Fisher test the rest
-                risk = prep["risk"].copy()
-                final_gt1 = np.where(
-                    covered_mask, max_gt_full + 1, 0
-                ).astype(prep["gt1"].dtype)
-                changed = prep["gt1"] != final_gt1
-                risk |= changed
-                risk[:-1] |= changed[1:]
-                risk[1:] |= changed[:-1]
-                mfull = np.full(sz, np.inf)
-                mfull[covered] = margin
-                risk |= covered_mask & (mfull < 1e-8)
-                prep["risk"] = risk
-                fs_w = (prep["fs_hi"].astype(np.float64)
-                        + prep["fs_lo"].astype(np.float64))
-                fs_w[~covered_mask] = 0.0
-                rc = np.nonzero(covered_mask & risk)[0]
-                if len(rc):
-                    fs_w[rc] = fisher_strand(
-                        counts2[rc], max_gt_full[rc],
+            if fused is None:
+                with tr.stage("call.column"):
+                    res = self._call_batch(ccounts, cquals, cref)
+            with tr.stage("call.finish"):
+                if fused is not None:
+                    prep = fused[4]
+                    res = self._finish_exact(*fused[:4], ccounts, cquals,
+                                             cref)
+                gt_prob, max_gt, margin, _off = res
+                gt_prob_full[covered] = gt_prob
+                max_gt_full[covered] = max_gt
+                if prep is not None:
+                    # host-side staleness: any row the exact tiers rescued
+                    # (ll tie / quals mismatch -> margin 0, or a changed
+                    # winner) invalidates its own prep AND its neighbours'
+                    # CG context; the device fs then carries only rows the
+                    # guard bands certify, the host Fisher test the rest
+                    risk = prep["risk"].copy()
+                    final_gt1 = np.where(
+                        covered_mask, max_gt_full + 1, 0
+                    ).astype(prep["gt1"].dtype)
+                    changed = prep["gt1"] != final_gt1
+                    risk |= changed
+                    risk[:-1] |= changed[1:]
+                    risk[1:] |= changed[:-1]
+                    mfull = np.full(sz, np.inf)
+                    mfull[covered] = margin
+                    risk |= covered_mask & (mfull < 1e-8)
+                    prep["risk"] = risk
+                    fs_w = (prep["fs_hi"].astype(np.float64)
+                            + prep["fs_lo"].astype(np.float64))
+                    fs_w[~covered_mask] = 0.0
+                    rc = np.nonzero(covered_mask & risk)[0]
+                    if len(rc):
+                        fs_w[rc] = fisher_strand(
+                            counts2[rc], max_gt_full[rc],
+                            not self.cfg.reference_quirks,
+                        )
+                    fs_full[:] = fs_w
+                else:
+                    fs_full[covered] = fisher_strand(
+                        counts2[covered], max_gt,
                         not self.cfg.reference_quirks,
                     )
-                fs_full[:] = fs_w
-            else:
-                fs_full[covered] = fisher_strand(
-                    counts2[covered], max_gt,
-                    not self.cfg.reference_quirks,
-                )
         soa = {
             "covered": covered_mask,
             "counts": counts,
@@ -501,7 +540,7 @@ class HostCallEngine(TorchCallEngine):
     def __init__(self, cfg: CallerConfig):
         self.cfg = cfg
         self.devices = []
-        self.tracer = None
+        self.tracer = NULL_TRACER
         self.tier_positions = dict.fromkeys(TIERS, 0)
         self.fused_chunks = self.column_chunks = 0
         self._model = genotype_native.native_model(

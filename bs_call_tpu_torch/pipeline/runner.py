@@ -58,63 +58,66 @@ def run_caller(cfg: CallerConfig, device: torch.device | str,
     cfg.sanitize()
     if tracer is None:
         tracer = Tracer(enabled=cfg.verbose)
-    # -t calc,input,output shares, clamped to this process's CPU affinity
-    aff = _n_threads()
-    in_threads = min(cfg.input_threads or cfg.threads, aff)
-    out_threads = min(
-        cfg.output_threads if cfg.output_threads else cfg.threads, aff
-    )
-    reader = open_alignment_file(
-        cfg.input_file, threads=in_threads, reference=cfg.reference_file
-    )
-    fasta = FastaIndex(cfg.reference_file)
-    table = reconcile_contigs(
-        fasta,
-        reader.header,
-        cfg.contig_bed,
-        cfg.contig_sizes,
-        make_stats=stats is not None,
-    )
-    if dbsnp is None and cfg.dbsnp_file:
-        from bs_call_tpu_torch.io.dbsnp import DbSnpIndex
-
-        dbsnp = DbSnpIndex(cfg.dbsnp_file)
-
-    # before the output opens: an engine that cannot start leaves no file
-    engine = (HostCallEngine(cfg) if device == HOST
-              else TorchCallEngine(cfg, device, devices))
-    engine.tracer = tracer
-    # the row engine, where the gate holds, is built here too; it is
-    # closed below if anything fails before the native driver owns it
-    rowe = stats_acc = None
-    if device == HOST and _row_engine_gate(
-        cfg, table, engine, dbsnp, stats is not None
-    ):
-        rowe, stats_acc = _make_row_engine(cfg, stats is not None)
-    try:
-        out_fileobj, close_out, writer, emitter, vector_emitter = (
-            _open_output(cfg, table, reader, dbsnp, stats, out_fileobj,
-                         out_threads)
+    with tracer.stage("job.open"):
+        # -t calc,input,output shares, clamped to this process's CPU affinity
+        aff = _n_threads()
+        in_threads = min(cfg.input_threads or cfg.threads, aff)
+        out_threads = min(
+            cfg.output_threads if cfg.output_threads else cfg.threads, aff
         )
-        native = None
-        if device != HOST or rowe is not None:
-            native = _try_native(
-                cfg, table, reader=reader, collect_stats=stats is not None
-            )
-    except BaseException:
-        if rowe is not None:
-            rowe.close()
-        raise
-    if native is None and rowe is not None:
-        # the native ingest does not take this input: the Python record
-        # path carries the run
-        rowe.close()
+        reader = open_alignment_file(
+            cfg.input_file, threads=in_threads, reference=cfg.reference_file
+        )
+        fasta = FastaIndex(cfg.reference_file)
+        table = reconcile_contigs(
+            fasta,
+            reader.header,
+            cfg.contig_bed,
+            cfg.contig_sizes,
+            make_stats=stats is not None,
+        )
+        if dbsnp is None and cfg.dbsnp_file:
+            from bs_call_tpu_torch.io.dbsnp import DbSnpIndex
+
+            dbsnp = DbSnpIndex(cfg.dbsnp_file)
+
+        # before the output opens: an engine that cannot start leaves no file
+        engine = (HostCallEngine(cfg) if device == HOST
+                  else TorchCallEngine(cfg, device, devices))
+        engine.tracer = tracer
+        # the row engine, where the gate holds, is built here too; it is
+        # closed below if anything fails before the native path owns it
         rowe = stats_acc = None
-    if stats_acc is not None:
-        # one accumulator for the row engine's blocks and the vector
-        # emitter's, folded into `stats` by finalize_stats
-        vector_emitter._nacc = stats_acc
-        vector_emitter._nacc_tried = True
+        if device == HOST and _row_engine_gate(
+            cfg, table, engine, dbsnp, stats is not None
+        ):
+            rowe, stats_acc = _make_row_engine(cfg, stats is not None)
+        try:
+            out_fileobj, close_out, writer, emitter, vector_emitter = (
+                _open_output(cfg, table, reader, dbsnp, stats, out_fileobj,
+                             out_threads)
+            )
+            native = None
+            if device != HOST or rowe is not None:
+                native = _try_native(
+                    cfg, table, reader=reader, collect_stats=stats is not None
+                )
+        except BaseException:
+            if rowe is not None:
+                rowe.close()
+            raise
+        if vector_emitter is not None:
+            vector_emitter.tracer = tracer
+        if native is None and rowe is not None:
+            # the native ingest does not take this input: the Python record
+            # path carries the run
+            rowe.close()
+            rowe = stats_acc = None
+        if stats_acc is not None:
+            # one accumulator for the row engine's blocks and the vector
+            # emitter's, folded into `stats` by finalize_stats
+            vector_emitter._nacc = stats_acc
+            vector_emitter._nacc_tried = True
     if native is not None:
         tracer.progress("using native C++ ingest pipeline")
         if rowe is not None:
@@ -127,14 +130,15 @@ def run_caller(cfg: CallerConfig, device: torch.device | str,
         process_contig_blocks(
             cfg, reader, table, fasta, engine, emitter, stats, tracer
         )
-    emitter.flush()
-    writer.close()
-    if close_out:
-        out_fileobj.close()
-    if vector_emitter is not None and stats is not None:
-        # fold natively accumulated report counters into the Python
-        # BsStats before anyone reports it
-        vector_emitter.finalize_stats(table)
+    with tracer.stage("job.close"):
+        emitter.flush()
+        writer.close()
+        if close_out:
+            out_fileobj.close()
+        if vector_emitter is not None and stats is not None:
+            # fold natively accumulated report counters into the Python
+            # BsStats before anyone reports it
+            vector_emitter.finalize_stats(table)
     for name, n in engine.tier_positions.items():
         tracer.count(f"tier_{name}", n)
     tracer.count("fused_chunks", engine.fused_chunks)
@@ -527,11 +531,19 @@ def process_contig_blocks_native(
     `rowe` (a HostRowEngine, which this call closes) every staged block of
     9 or more positions runs load / model / emit natively; the others are
     collected and go through `engine.call_block_soa`, in the same ordered
-    emit worker."""
+    emit worker.
+
+    Three threads, each with its stages on `tracer`: the producer
+    (`ingest.native`, `ingest.contig`, `ingest.pileup`, `ingest.reads`,
+    `meth_prof`, `ingest_load`), this caller (`ingest`: waiting for the
+    producer; `call`; `emit.backlog`: waiting for the emit worker) and
+    the emit worker (`emit`). The producer numbers the blocks from 0
+    (`bid`); each block-level span carries its block's number."""
     # re-open with stats collection if needed (no-op when the pipeline
     # was already created with stats on, e.g. non-reopenable stdin pipes)
     if stats is not None and not npipe.stats_on:
         npipe = npipe.reopen(collect_stats=True)
+    import itertools
     import queue
     import threading
 
@@ -593,19 +605,23 @@ def process_contig_blocks_native(
     def produce():
         pseq = None
         try:
-            while True:
-                if hasattr(npipe, "next_block_meta"):
-                    b = npipe.next_block_meta()
-                else:
-                    b = npipe.next_block()
+            for bid in itertools.count():
+                with tracer.stage("ingest.native") as sp:
+                    if hasattr(npipe, "next_block_meta"):
+                        b = npipe.next_block_meta()
+                    else:
+                        b = npipe.next_block()
+                    if b is not None:
+                        sp.block = bid
                 if b is None:
                     _put(None)
                     return
                 cname = table.contigs[table.tid2id[b["tid"]]].name
                 if pseq is None or pseq.name != cname:
-                    pseq = fasta.load_contig(
-                        cname, calc_gc=stats is not None
-                    )
+                    with tracer.stage("ingest.contig", block=bid):
+                        pseq = fasta.load_contig(
+                            cname, calc_gc=stats is not None
+                        )
                 collected = "counts2" in b
                 sz = b["y"] - b["x"] + 1
                 if rowe is not None and not collected and sz >= 9:
@@ -613,20 +629,23 @@ def process_contig_blocks_native(
                     if slot is None:
                         return
                     refw = sequence_window(pseq, b["x"], sz + 2)
-                    with tracer.stage("ingest_load"):
+                    with tracer.stage("ingest_load", block=bid):
                         rowe.load(slot, npipe, b["x"], b["y"], refw)
                     b["kind"] = "row"
                     b["slot"] = slot
                 elif not collected:
-                    b = npipe._collect_block()
+                    with tracer.stage("ingest.pileup", block=bid):
+                        b = npipe._collect_block()
+                b["bid"] = bid
                 b["seq"] = pseq
                 # fused device tier: export the staged block's read
                 # batch (valid only until the next next_block call, so
                 # it must be copied out here)
                 if engine.wants_reads() and b.get("kind") != "row":
-                    b["reads"] = npipe.block_reads()
+                    with tracer.stage("ingest.reads", block=bid):
+                        b["reads"] = npipe.block_reads()
                 if stats is not None:
-                    with tracer.stage("meth_prof"):
+                    with tracer.stage("meth_prof", block=bid):
                         mx = b.get("meth_x", b["x"])
                         rw = sequence_window(
                             pseq, mx, b["y"] - mx + 3
@@ -638,7 +657,8 @@ def process_contig_blocks_native(
         except Exception as e:  # surface errors on the consumer side
             _put(e)
 
-    t = threading.Thread(target=produce, daemon=True)
+    t = threading.Thread(target=produce, name="bs_call producer",
+                         daemon=True)
     t.start()
     # emit stage runs on its own thread (the reference's print_thread,
     # process.c:74-110): formatting/writing block k overlaps the engine
@@ -658,10 +678,10 @@ def process_contig_blocks_native(
             if item[0] == "row":
                 # the slot goes back even after an error, so the
                 # producer never waits on one
-                _, slot, ctg_r, partial_r = item
+                _, bid, slot, ctg_r, partial_r = item
                 if not emit_err:
                     try:
-                        with tracer.stage("emit"):
+                        with tracer.stage("emit", block=bid):
                             rowe.emit(slot, emitter, ctg_r,
                                       2 if partial_r else 0,
                                       stats is not None, ve._f)
@@ -672,12 +692,21 @@ def process_contig_blocks_native(
             if emit_err:
                 continue  # drain so the producer can't block
             try:
-                with tracer.stage("emit"):
-                    _emit_block_soa(cfg, emitter, *item[1])
+                with tracer.stage("emit", block=item[1]):
+                    _emit_block_soa(cfg, emitter, *item[2])
             except Exception as e:
                 emit_err.append(e)
 
-    et = threading.Thread(target=emit_worker, daemon=True)
+    def emit_put(item):
+        # the caller waits here only when the emit worker sets the pace
+        try:
+            emit_q.put_nowait(item)
+        except queue.Full:
+            with tracer.stage("emit.backlog"):
+                emit_q.put(item)
+
+    et = threading.Thread(target=emit_worker, name="bs_call emit",
+                          daemon=True)
     et.start()
     try:
         while True:
@@ -699,15 +728,15 @@ def process_contig_blocks_native(
             tracer.count("blocks")
             tracer.count("templates", blk["n_templates"])
             tracer.count("positions", sz)
+            bid = blk["bid"]
             if blk.get("kind") == "row":
-                with tracer.stage("call"):
+                with tracer.stage("call", block=bid):
                     engine.tier_positions["oracle"] += rowe.model(
                         blk["slot"])
                 if emit_err:
                     raise emit_err[0]
-                emit_q.put(
-                    ("row", blk["slot"], ctg, blk.get("partial", False))
-                )
+                emit_put(("row", bid, blk["slot"], ctg,
+                          blk.get("partial", False)))
                 continue
             ref_window = sequence_window(contig_seq, x, sz + 2)
             # stream big blocks through the emit worker in chunks so the
@@ -743,7 +772,7 @@ def process_contig_blocks_native(
                     {k: v[sl] for k, v in agg.items()} if agg else None
                 )
                 rd_blk = blk.get("reads")
-                with tracer.stage("call"):
+                with tracer.stage("call", block=bid):
                     soa = engine.call_block_soa(
                         blk["counts2"][sl], blk["qual_sum"][sl],
                         blk["mapq2_sum"][sl],
@@ -752,15 +781,16 @@ def process_contig_blocks_native(
                     )
                 if emit_err:
                     raise emit_err[0]
-                emit_q.put((
-                    "py",
+                emit_put((
+                    "py", bid,
                     (ctg, soa, ref_window[s - x : e - x + 3], s, e, hold),
                 ))
                 if e == y:
                     break
                 s = e - 3
-        emit_q.put(None)
-        et.join()
+        with tracer.stage("emit.backlog"):
+            emit_q.put(None)
+            et.join()
         if emit_err:
             raise emit_err[0]
         if stats is not None:

@@ -22,12 +22,13 @@ from bs_call_tpu.ops import oracle
 from bs_call_tpu.pipeline.runner import run_caller as jax_run_caller
 from bs_call_tpu.stats.collect import BsStats
 from bs_call_tpu.stats.report import write_report
-from bs_call_tpu.utils.trace import Tracer
+from bs_call_tpu.utils.trace import Tracer as JaxTracer
 from bs_call_tpu_torch import cli
 from bs_call_tpu_torch.device import resolve_device
 from bs_call_tpu_torch.parity import check_no_exact, strip_date
 from bs_call_tpu_torch.pipeline.engine import TorchCallEngine
 from bs_call_tpu_torch.pipeline.runner import run_caller
+from bs_call_tpu_torch.utils.trace import Tracer
 
 from __graft_entry__ import _make_fixture
 from make_golden import GOLDEN_DIR, build_fixture
@@ -39,7 +40,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def run(runner, cfg, *args):
     out = io.BytesIO()
-    tracer = Tracer()
+    # each package's runner takes its own package's tracer
+    tracer = (Tracer if runner is run_caller else JaxTracer)()
     stats, table = runner(cfg, *args, out_fileobj=out, stats=BsStats(),
                           tracer=tracer)
     rep = io.StringIO()
