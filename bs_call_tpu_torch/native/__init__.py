@@ -32,6 +32,7 @@ _SRCS = [
     os.path.join(_DIR, "bsc_emit.cpp"),
     os.path.join(_DIR, "bsc_model.cpp"),
     os.path.join(_DIR, "bsc_rowengine.cpp"),
+    os.path.join(_DIR, "bsc_dbsnp.cpp"),
 ]
 _HDR = os.path.join(_DIR, "bsc_common.h")
 BUILD = os.path.join(os.path.dirname(_DIR), "build")
@@ -289,6 +290,20 @@ def load():
             ctypes.c_int32, u8p, ctypes.c_int64, ctypes.c_int64,
             i64p, i64p, u8p, ctypes.c_void_p, ctypes.c_int64,
         ]
+        # dbSNP contig decode and rs names (bsc_dbsnp.cpp)
+        lib.bsc_dbsnp_load.restype = ctypes.c_void_p
+        lib.bsc_dbsnp_load.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, i64p, i64p, i32p,
+        ]
+        lib.bsc_dbsnp_take.restype = None
+        lib.bsc_dbsnp_take.argtypes = [ctypes.c_void_p] * 6
+        lib.bsc_dbsnp_free.restype = None
+        lib.bsc_dbsnp_free.argtypes = [ctypes.c_void_p]
+        lib.bsc_dbsnp_names.restype = None
+        lib.bsc_dbsnp_names.argtypes = [ctypes.c_int64] + [
+            ctypes.c_void_p
+        ] * 9
         lib.bsc_bgzf_deflate_batch.restype = ctypes.c_int64
         lib.bsc_rans_decode_o0.restype = ctypes.c_int64
         lib.bsc_rans_decode_o1.restype = ctypes.c_int64

@@ -201,6 +201,13 @@ BCF_ID_NAMES = [
 ]
 
 
+def _ptr(a):
+    """A numpy array's data pointer for a ctypes call; NULL for None."""
+    import ctypes
+
+    return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+
 def _native_format_bcf(bcf_writer, ctg, n, g, r, flt, mac1, prf_all,
                        ctx_all, phred, dp1, mq, qd, gl_vals, gl_len, c,
                        q8, cond_cg, cg_code, het, fs_int, pos_e,
@@ -218,14 +225,8 @@ def _native_format_bcf(bcf_writer, ctg, n, g, r, flt, mac1, prf_all,
     ids = np.array(
         [bcf_writer.ids[nm] for nm in BCF_ID_NAMES], dtype=np.int32
     )
-    if rs_ids is not None:
-        blobs = [(s or "").encode() for s in rs_ids]
-        rs_off = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(b) for b in blobs], out=rs_off[1:])
-        rs_blob = b"".join(blobs)
-    else:
-        rs_off = np.zeros(n + 1, dtype=np.int64)
-        rs_blob = b""
+    # rs_ids: (offsets [n + 1], blob) or None (NULL: no ID anywhere)
+    rs_off, rs_blob = (None, None) if rs_ids is None else rs_ids
     cap = 1024 * (n + 2)
     out = np.empty(cap, dtype=np.uint8)  # uninitialized (see text path)
     i64 = lambda a: np.ascontiguousarray(a, dtype=np.int64)  # noqa: E731
@@ -248,7 +249,7 @@ def _native_format_bcf(bcf_writer, ctg, n, g, r, flt, mac1, prf_all,
         P(arrs["gll"]), P(arrs["c"]), P(arrs["q"]), P(arrs["cg"]),
         P(arrs["cgc"]),
         prf_all, ctx_all,
-        rs_off.ctypes.data_as(ctypes.c_void_p), rs_blob,
+        _ptr(rs_off), _ptr(rs_blob),
         _ALT_LUT, 8, _CS_LUT, 4, _FT_LUT, 24,
         _FT_LEN.ctypes.data_as(ctypes.c_void_p), _PBASE_B5, _GT_INT_LUT,
         P(out), ctypes.c_int64(cap),
@@ -381,14 +382,8 @@ def _native_format(fileobj, ctg, n, g, r, flt, mac1, prf_all, ctx_all,
             return False
     except Exception:
         return False
-    if rs_ids is not None:
-        blobs = [(s or "").encode() for s in rs_ids]
-        rs_off = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(b) for b in blobs], out=rs_off[1:])
-        rs_blob = b"".join(blobs)
-    else:
-        rs_off = np.zeros(n + 1, dtype=np.int64)
-        rs_blob = b""
+    # rs_ids: (offsets [n + 1], blob) or None (NULL: no ID anywhere)
+    rs_off, rs_blob = (None, None) if rs_ids is None else rs_ids
     cap = 512 * (n + 2)
     # uninitialized buffer: create_string_buffer zero-fills the whole
     # capacity (~150 MB for a 300k-row block), which showed up in profiles
@@ -423,7 +418,7 @@ def _native_format(fileobj, ctg, n, g, r, flt, mac1, prf_all, ctx_all,
         P(mq_a), P(qd_a), P(fs_a), P(het_a), P(glv), P(gll), P(c_a),
         P(q_a), P(cg_a), P(cgc),
         prf_all, ctx_all,
-        rs_off.ctypes.data_as(ctypes.c_void_p), rs_blob,
+        _ptr(rs_off), _ptr(rs_blob),
         _GT_LUT, 8, _ALT_LUT, 8, _CS_LUT, 4, _FT_LUT, 24,
         _FT_LEN.ctypes.data_as(ctypes.c_void_p), _PBASE_B5,
         P(out), ctypes.c_int64(cap), ctypes.c_int32(_n_threads()),
@@ -477,7 +472,7 @@ class VectorBlockEmitter:
         gate (already-emitted and uncovered rows never re-enter `reach`),
         so output and stats are byte-identical to one whole-block call.
 
-        Stages on `self.tracer`: `emit.dbsnp` (the contig's dbSNP bins,
+        Stages on `self.tracer`: `emit.dbsnp` (the contig's dbSNP arrays,
         range flags, rs ids), `emit.prep`, `emit.stats`, `emit.format`.
         """
         tr = self.tracer
@@ -489,8 +484,13 @@ class VectorBlockEmitter:
         if self.dbsnp is not None:
             with tr.stage("emit.dbsnp"):
                 if self._dbsnp_ctg_name != ctg.name:
+                    self._dbsnp_ctg = None  # free the last contig first
                     self._dbsnp_ctg = self.dbsnp.load_contig(ctg.name)
                     self._dbsnp_ctg_name = ctg.name
+                    if self._dbsnp_ctg is not None:
+                        native = self._dbsnp_ctg.native
+                        tr.count("dbsnp_native_contigs", int(native))
+                        tr.count("dbsnp_py_contigs", int(not native))
                 if self._dbsnp_ctg is not None:
                     rs_present, rs_selected = self._dbsnp_ctg.range_flags(
                         x, y)
@@ -639,13 +639,14 @@ class VectorBlockEmitter:
             pos_e = pos[idx]
             het = het_arr if het_arr is not None else GT_HET_A[g]
 
-        # rs IDs for emitted rows
+        # rs IDs for emitted rows: (offsets, blob)
         rs_ids = None
         if rs_present is not None:
             with tr.stage("emit.dbsnp"):
-                rs_ids = [None] * n
-                for i in np.nonzero(rs_present[idx])[0]:
-                    _, rs_ids[i] = self._dbsnp_ctg.lookup(int(pos_e[i]))
+                rows = np.flatnonzero(rs_present[idx])
+                if len(rows):
+                    rs_ids = self._dbsnp_ctg.rs_ids(pos_e, rows)
+                tr.count("dbsnp_rs_rows", len(rows))
 
         if self.stats is not None:
             with tr.stage("emit.stats"):
@@ -686,6 +687,7 @@ class VectorBlockEmitter:
         rs_ids,
     ):
         name = ctg.name
+        rs_off, rs_blob = (None, None) if rs_ids is None else rs_ids
         lines = []
         for i in range(n):
             gi = g[i]
@@ -721,7 +723,9 @@ class VectorBlockEmitter:
             if het[i]:
                 fmt += ":FS"
                 vals += f":{fs_int[i]}"
-            rid = rs_ids[i] if rs_ids is not None and rs_ids[i] else "."
+            rid = "."
+            if rs_off is not None and rs_off[i + 1] > rs_off[i]:
+                rid = rs_blob[rs_off[i]:rs_off[i + 1]].tobytes().decode()
             lines.append(
                 f"{name}\t{pos_e[i]}\t{rid}\t{PBASE[ri]}\t{ALT_STR[gi][ri]}\t"
                 f"{ph}\t{filt}\tCX={prf}\t{fmt}\t{vals}\n"
