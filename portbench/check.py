@@ -14,11 +14,22 @@ record reads its neighbours' calls two positions either way). The report
 is a sum over the whole pass, so it is compared only where the reference
 ran on every record.
 
+Where the job calls regions (`-C`, the dataset's `regions`), the windows
+are drawn over the regions, and only positions inside both a window and
+a region are compared: the job emits nothing outside its regions, and
+every record it emits there counts as a differing site. The reference
+also gets the fragment of the first record the job keeps on each contig:
+the block builder takes a contig's first record as forward-facing, so a
+backward-facing mate at a region's edge is piled alone there and dropped
+anywhere else, and the reference has to meet the contig's first record
+where the job does.
+
 Numbers compared, each an exact count with the limit 0:
 * `sites_differ`: compared positions whose BCF record differs in any
   byte (CHROM, POS, ID, REF/ALT, QUAL, FILTER, INFO: DP, MQ, CX, ...,
   FORMAT: GT, GL, GQ, DP, MC8, AMQ, CS, CG, CX, FT, QD, FS), or that one
-  side has and the other has not;
+  side has and the other has not, and the job's records outside every
+  region;
 * `report_differ`: lines of the JSON report that differ, the date line
   left out."""
 
@@ -33,6 +44,7 @@ import numpy as np
 from portbench.ref.caller import run_reference
 from portbench.ref.io.bam import BamHeader, BamRec
 from portbench.gen import library
+from portbench.work.inputs import meets_regions, used_records
 
 _CODE = np.zeros(256, dtype=np.uint8)
 for _c, _v in zip(b"ACGT", (1, 2, 3, 4)):
@@ -107,10 +119,24 @@ def to_records(ds, idx) -> list:
 
 def pick_windows(ds, chk: dict, seed: int):
     """[(tid, lo, hi)] 0-based half-open windows drawn from `seed`, at
-    least a window's width from a contig's ends."""
+    least a window's width from a contig's ends; with regions, one a
+    region (as many as there are, at most), drawn without replacement,
+    each holding its region whole or lying inside it."""
     rng = np.random.default_rng([seed, 0x5EED])
     w = chk["window_bp"]
     out = []
+    if ds.regions:
+        pick = rng.choice(len(ds.regions), replace=False,
+                          size=min(chk["windows"], len(ds.regions)))
+        for i in pick.tolist():
+            t, lo, hi = ds.regions[i]
+            if hi - lo <= w:
+                a = int(rng.integers(hi - w, lo + 1))
+            else:
+                a = int(rng.integers(lo, hi - w + 1))
+            a = min(max(a, 0), ds.lengths[t] - w)
+            out.append((t, a, a + w))
+        return out
     for _ in range(chk["windows"]):
         t = int(rng.integers(0, len(ds.lengths)))
         lo = int(rng.integers(w, ds.lengths[t] - 2 * w))
@@ -118,14 +144,20 @@ def pick_windows(ds, chk: dict, seed: int):
     return out
 
 
-def records_near(ds, windows, reach) -> np.ndarray:
+def records_near(ds, windows, reach, argv=()) -> np.ndarray:
     """Sorted indices of every record of a fragment one of whose records
-    meets a window widened by `reach` either way."""
+    meets a window widened by `reach` either way; with regions, also of
+    the fragment of each contig's first record that meets a region and
+    that the caller keeps by the job's flags (`argv`)."""
     r = ds.reads
     hit = np.zeros(len(r["pos"]), dtype=bool)
     for t, lo, hi in windows:
         hit |= ((r["tid"] == t) & (r["pos"] < hi + reach)
                 & (r["end"] > lo - reach))
+    if ds.regions:
+        read = np.nonzero(meets_regions(r, ds.regions)
+                          & used_records(r, argv))[0]
+        hit[read[np.unique(r["tid"][read], return_index=True)[1]]] = True
     names = np.unique(r["name"][hit])
     return np.nonzero(np.isin(r["name"], names))[0]
 
@@ -139,27 +171,40 @@ def compare(ds, argv, bcf_bytes, report_text, chk, seed,
     spans = keep = None
     if chk["windows"]:
         windows = pick_windows(ds, chk, seed)
-        idx = records_near(ds, windows, chk["reach_bp"])
+        idx = records_near(ds, windows, chk["reach_bp"], argv)
         # the reference calls a little past each window; positions
         # `margin_bp` inside it are compared
         spans = [(t, lo - 4, hi + 4) for t, lo, hi in windows]
         m = chk["margin_bp"]
         keep = [(t, lo + m, hi - m) for t, lo, hi in windows]
+        if ds.regions:
+            keep = [(t, max(lo, a), min(hi, b)) for t, lo, hi in keep
+                    for u, a, b in ds.regions
+                    if u == t and max(lo, a) < min(hi, b)]
     else:
         idx = np.arange(ds.n_records)
+        if ds.regions:
+            keep = list(ds.regions)
     ref_bcf, ref_report = run_reference(argv, to_records(ds, idx), header,
                                         dtype=dtype, spans=spans)
     got = bcf_records(bcf_bytes, keep)
     want = bcf_records(ref_bcf, keep)
     keys = set(got) | set(want)
     bad = sorted(k for k in keys if got.get(k) != want.get(k))
+    outside = []
+    if ds.regions:
+        inside = bcf_records(bcf_bytes, ds.regions)
+        outside = sorted(k for k in bcf_records(bcf_bytes)
+                         if k not in inside)
     out = {
         "sites_compared": len(keys),
-        "sites_differ": len(bad),
-        "first_differ": [list(k) for k in bad[:3]],
+        "sites_differ": len(bad) + len(outside),
+        "first_differ": [list(k) for k in (bad + outside)[:3]],
         "reads_referenced": int(len(idx)),
     }
-    if keep is None and report_text is not None:
+    if ds.regions:
+        out["sites_outside_regions"] = len(outside)
+    if not chk["windows"] and report_text is not None:
         a = [ln for ln in report_text.splitlines() if '"date"' not in ln]
         b = [ln for ln in ref_report.splitlines() if '"date"' not in ln]
         n = max(len(a), len(b))

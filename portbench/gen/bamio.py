@@ -44,6 +44,7 @@ class BgzfWriter:
         self._level = level
         self._buf = bytearray()
         self._pending = deque()
+        self.block_sizes = []  # compressed size of each block, in order
 
     def write(self, data) -> None:
         self._buf += data
@@ -52,7 +53,11 @@ class BgzfWriter:
             self._submit(bytes(self._buf[:n]))
             del self._buf[:n]
         while self._pending and self._pending[0].done():
-            self._f.write(self._pending.popleft().result())
+            self._put(self._pending.popleft().result())
+
+    def _put(self, block: bytes) -> None:
+        self._f.write(block)
+        self.block_sizes.append(len(block))
 
     def _submit(self, data: bytes) -> None:
         for i in range(0, len(data), BGZF_PAYLOAD):
@@ -64,7 +69,7 @@ class BgzfWriter:
             self._submit(bytes(self._buf))
             self._buf.clear()
         while self._pending:
-            self._f.write(self._pending.popleft().result())
+            self._put(self._pending.popleft().result())
         self._f.write(_BGZF_EOF)
         self._f.close()
 
@@ -91,6 +96,28 @@ def reg2bin(beg: np.ndarray, end: np.ndarray) -> np.ndarray:
     return out
 
 
+def _layouts(rec: dict, cigar, name_width: int):
+    """The records' layouts, (kind, length) pairs: the distinct keys, each
+    record's index into them, and each record's size in bytes."""
+    kind = rec["kind"].astype(np.int64)
+    length = rec["length"].astype(np.int64)
+    key = kind * 65536 + length
+    ukeys, inv = np.unique(key, return_inverse=True)
+    lay_ncig = np.array([len(cigar(int(k // 65536), int(k % 65536)))
+                         for k in ukeys])
+    ncig = lay_ncig[inv]
+    rowlen = 36 + name_width + 1 + 4 * ncig + (length + 1) // 2 + length + 4
+    return ukeys, inv, rowlen
+
+
+def record_sizes(rec: dict, cigar, name_width: int = 10) -> np.ndarray:
+    """Bytes of each record `encode_records` writes, its length field
+    included."""
+    if len(rec["pos"]) == 0:
+        return np.zeros(0, dtype=np.int64)
+    return _layouts(rec, cigar, name_width)[2]
+
+
 def _put(rows, col, values, dtype):
     v = np.ascontiguousarray(np.asarray(values).astype(dtype))
     w = np.dtype(dtype).itemsize
@@ -110,15 +137,7 @@ def encode_records(rec: dict, cigar, name_width: int = 10) -> bytes:
     n = len(rec["pos"])
     if n == 0:
         return b""
-    kind = rec["kind"].astype(np.int64)
-    length = rec["length"].astype(np.int64)
-    # layouts: (kind, length) pairs
-    key = kind * 65536 + length
-    ukeys, inv = np.unique(key, return_inverse=True)
-    lay_ncig = np.array([len(cigar(int(k // 65536), int(k % 65536)))
-                         for k in ukeys])
-    ncig = lay_ncig[inv]
-    rowlen = 36 + name_width + 1 + 4 * ncig + (length + 1) // 2 + length + 4
+    ukeys, inv, rowlen = _layouts(rec, cigar, name_width)
     offs = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(rowlen, out=offs[1:])
     flat = np.zeros(offs[-1], dtype=np.uint8)
@@ -265,3 +284,90 @@ def write_dbsnp_index(path: str, contigs, header: str) -> None:
         fp.seek(0)
         fp.write(struct.pack("<IIQQQ", 0xD7278434, 0, hdr_off, max_buf,
                              len(comp)))
+
+
+BAI_META_BIN = 37450  # the pseudo-bin of a reference's span and counts
+_U16 = np.uint64(16)
+
+
+def virtual_offsets(u, block_sizes) -> np.ndarray:
+    """BGZF virtual offsets (the block's file offset << 16 | the offset in
+    its payload) of offsets `u` into the uncompressed stream that
+    `BgzfWriter` cut every BGZF_PAYLOAD bytes into blocks of
+    `block_sizes` compressed bytes. An offset at a block's end is the next
+    block's start, as htslib's `bgzf_tell` gives it."""
+    coff = np.concatenate([[0], np.cumsum(block_sizes)]).astype(np.uint64)
+    u = np.asarray(u, dtype=np.int64)
+    return (coff[u // BGZF_PAYLOAD] << _U16) | (u % BGZF_PAYLOAD).astype(
+        np.uint64)
+
+
+def write_bai(path: str, n_ref: int, tid, pos, end, flag, vbeg, vend):
+    """The BAI index (SAM spec 5.2) of coordinate-sorted records, in the
+    layout `samtools index` writes: for each reference its bins (SAM's
+    reg2bin of [pos, end)), each a list of chunks of virtual offsets, the
+    pseudo-bin 37450 (the reference's first and last offsets, mapped and
+    unmapped counts), and the linear index (the least start offset of the
+    records that meet each 16 kbp window); then no unplaced records.
+
+    A chunk is a run of records in one bin that follow each other in the
+    file; chunks of a bin merge where one begins in the BGZF block in
+    which the one before it ends (htslib's rule). `vbeg`, `vend`: each
+    record's start and end offsets (`virtual_offsets`)."""
+    tid = np.asarray(tid, dtype=np.int64)
+    pos = np.asarray(pos, dtype=np.int64)
+    end = np.maximum(np.asarray(end, dtype=np.int64), pos + 1)
+    vbeg = np.asarray(vbeg, dtype=np.uint64)
+    vend = np.asarray(vend, dtype=np.uint64)
+    bins = reg2bin(pos, end)
+    out = bytearray(b"BAI\x01" + struct.pack("<i", n_ref))
+    for t in range(n_ref):
+        sel = np.nonzero(tid == t)[0]
+        if not len(sel):
+            out += struct.pack("<ii", 0, 0)
+            continue
+        b, vb, ve = bins[sel], vbeg[sel], vend[sel]
+        run = np.ones(len(sel), dtype=bool)
+        run[1:] = b[1:] != b[:-1]
+        first = np.nonzero(run)[0]
+        last = np.append(first[1:], len(sel)) - 1
+        cbin, cb, ce = b[first], vb[first], ve[last]
+        order = np.lexsort((cb, cbin))
+        cbin, cb, ce = cbin[order], cb[order], ce[order]
+        new = np.ones(len(cb), dtype=bool)
+        new[1:] = (cbin[1:] != cbin[:-1]) | ((cb[1:] >> _U16)
+                                             != (ce[:-1] >> _U16))
+        at = np.nonzero(new)[0]
+        mbin, mb, me = cbin[at], cb[at], np.maximum.reduceat(ce, at)
+        ubins, bfirst = np.unique(mbin, return_index=True)
+        bounds = np.append(bfirst, len(mbin))
+        out += struct.pack("<i", len(ubins) + 1)
+        for i, ub in enumerate(ubins.tolist()):
+            k0, k1 = int(bounds[i]), int(bounds[i + 1])
+            out += struct.pack("<Ii", ub, k1 - k0)
+            out += np.stack([mb[k0:k1], me[k0:k1]], axis=1).astype(
+                "<u8").tobytes()
+        mapped = int(((np.asarray(flag)[sel] & 0x4) == 0).sum())
+        out += struct.pack("<IiQQQQ", BAI_META_BIN, 2, int(vb[0]),
+                           int(ve[-1]), mapped, len(sel) - mapped)
+        w0, w1 = pos[sel] >> 14, (end[sel] - 1) >> 14
+        none = np.iinfo(np.uint64).max
+        lin = np.full(int(w1.max()) + 1, none, dtype=np.uint64)
+        for k in range(int((w1 - w0).max()) + 1):
+            m = w0 + k <= w1
+            np.minimum.at(lin, (w0 + k)[m], vb[m])
+        # windows before the first record take its offset, the other
+        # empty ones the offset of the window before them
+        lin[:int(w0.min())] = vb[0]
+        have = np.where(lin == none, 0, np.arange(len(lin)))
+        lin = lin[np.maximum.accumulate(have)]
+        out += struct.pack("<i", len(lin)) + lin.astype("<u8").tobytes()
+    out += struct.pack("<Q", 0)
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def write_bed(path: str, names, regions) -> None:
+    """BED3 of `regions` ([(tid, lo, hi)], 0-based, half-open)."""
+    with open(path, "w") as f:
+        f.write("".join(f"{names[t]}\t{lo}\t{hi}\n" for t, lo, hi in regions))

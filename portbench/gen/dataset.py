@@ -1,11 +1,23 @@
 """A cell's inputs from its configuration and `--seed`: the reference
 FASTA (+ .fai), the coordinate-sorted BAM and the dbSNP index, written
 into one directory, and the arrays they were written from, which the
-reference check and the kernel work counters read."""
+reference check and the kernel work counters read.
+
+The library's protocol (`library.protocol`) is the module
+`portbench/gen/protocols/<protocol>.py`, found by name. It gives three
+functions: `plant(rng, seqs, lib)`, what it plants in the slab before
+the sample is drawn (or None); `reads(rng, sample, planted, lib,
+contig_bp)`, the read specs; `regions(planted)`, None or the regions the
+job calls ([(tid, lo, hi)], 0-based, half-open). Regions are written as
+`targets.bed`, which the job gets as `-C`, with the BAM's index
+`in.bam.bai` beside the BAM, as a user's pipeline holds one after
+`samtools index`."""
 
 from __future__ import annotations
 
+import importlib.util
 import os
+import re
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -14,6 +26,8 @@ import numpy as np
 from portbench.gen import bamio, library
 
 CHUNK_READS = 50_000
+PROTOCOLS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "protocols")
 
 
 @dataclass
@@ -30,10 +44,24 @@ class Dataset:
     qual: np.ndarray  # [n, Lmax] uint8 raw phred
     sample: library.Sample
     dbsnp: list  # (contig name, 1-based positions, rs ids)
+    bed_path: str = None  # the regions' BED, the job's -C
+    regions: list = None  # [(tid, lo, hi)], 0-based, half-open, sorted
 
     @property
     def n_records(self) -> int:
         return len(self.reads["pos"])
+
+
+def load_protocol(name: str):
+    """The protocol module `protocols/<name>.py`."""
+    path = os.path.join(PROTOCOLS, f"{name}.py")
+    if not re.fullmatch(r"[A-Za-z0-9_]+", name) or not os.path.isfile(path):
+        raise ValueError(f"unknown library protocol {name!r}")
+    spec = importlib.util.spec_from_file_location(
+        "portbench_protocol_" + name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def make_dataset(cfg: dict, seed: int, out_dir: str, threads: int = 8,
@@ -45,20 +73,15 @@ def make_dataset(cfg: dict, seed: int, out_dir: str, threads: int = 8,
     g = dict(cfg["genome"])
     g["contig_bp"] = max(int(g["contig_bp"] * scale), 20_000)
     lib = cfg["library"]
+    proto = load_protocol(lib["protocol"])
     seqs = library.make_genome(rng, g)
-    frags = None
-    if lib["protocol"] == "rrbs":
-        frags = library.plant_rrbs(rng, seqs, lib)
+    planted = proto.plant(rng, seqs, lib)
     sample = library.Sample(rng, seqs, cfg["sample"])
     names = [f"chr{i + 1}" for i in range(len(seqs))]
     lengths = [len(s) for s in seqs]
-    if lib["protocol"] == "wgbs":
-        specs = library.wgbs_reads(rng, sample, lib, lengths)
-    elif lib["protocol"] == "rrbs":
-        specs = library.rrbs_reads(rng, frags, lib)
-    else:
-        raise ValueError(f"unknown library protocol {lib['protocol']!r}")
-    specs = library.sort_reads(specs)
+    specs = library.sort_reads(proto.reads(rng, sample, planted, lib,
+                                           lengths))
+    regions = proto.regions(planted)
     os.makedirs(out_dir, exist_ok=True)
     ref_path = os.path.join(out_dir, "ref.fa")
     bam_path = os.path.join(out_dir, "in.bam")
@@ -82,13 +105,29 @@ def make_dataset(cfg: dict, seed: int, out_dir: str, threads: int = 8,
         part["seq"], part["qual"] = s, q
         return bamio.encode_records(part, library.cigar)
 
+    head = bamio.bam_header_bytes(names, lengths, text)
     with ThreadPoolExecutor(max_workers=threads) as gen, \
             ThreadPoolExecutor(max_workers=threads) as zpool:
         w = bamio.BgzfWriter(bam_path, zpool, level=cfg["bam_level"])
-        w.write(bamio.bam_header_bytes(names, lengths, text))
+        w.write(head)
         for data in gen.map(chunk, range(0, n, CHUNK_READS)):
             w.write(data)
         w.close()
+    bed_path = None
+    if regions is not None:
+        regions = sorted(regions)
+        for (t0, _lo0, hi0), (t1, lo1, _hi1) in zip(regions, regions[1:]):
+            if t0 == t1 and lo1 < hi0:
+                raise ValueError("the protocol's regions overlap")
+        bed_path = os.path.join(out_dir, "targets.bed")
+        bamio.write_bed(bed_path, names, regions)
+        u_end = len(head) + np.cumsum(bamio.record_sizes(specs,
+                                                         library.cigar))
+        u_beg = np.concatenate([[len(head)], u_end[:-1]])
+        bamio.write_bai(bam_path + ".bai", len(names), specs["tid"],
+                        specs["pos"], specs["end"], specs["flag"],
+                        bamio.virtual_offsets(u_beg, w.block_sizes),
+                        bamio.virtual_offsets(u_end, w.block_sizes))
     db = cfg["dbsnp"]
     contigs = []
     for t, (name, ln) in enumerate(zip(names, lengths)):
@@ -103,4 +142,4 @@ def make_dataset(cfg: dict, seed: int, out_dir: str, threads: int = 8,
     bamio.write_dbsnp_index(dbsnp_path, contigs,
                             "track name=portbench description=synthetic")
     return Dataset(out_dir, ref_path, bam_path, dbsnp_path, names, lengths,
-                   text, specs, seq, qual, sample, contigs)
+                   text, specs, seq, qual, sample, contigs, bed_path, regions)

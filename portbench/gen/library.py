@@ -2,13 +2,16 @@
 library sequenced from it, all from `--seed` and a configuration's
 parameters (`portbench/configs/<name>.json`). NumPy only.
 
-Two library protocols, chosen by `library.protocol`:
+A configuration's `library.protocol` names its module in
+`portbench/gen/protocols/`, which places the fragments with the functions
+here:
 
 * `wgbs`: directional paired-end whole-genome bisulfite sequencing.
   Fragments start uniformly on the slab, inserts ~N(mean, sd); read 1
   comes from the original top (OT, `XB:A:C`, C->T) or bottom (OB,
   `XB:A:G`, G->A) strand; PCR duplicates are copies of a fragment,
-  marked 0x400 as a duplicate-marking step leaves them.
+  marked 0x400 as a duplicate-marking step leaves them
+  (`pair_records`: fragments to records).
 * `rrbs`: directional single-end reduced-representation sequencing.
   MspI sites (C^CGG) are planted around size-selected fragments; reads
   start at a fragment end, OT reads at its left end, OB reads (reverse)
@@ -170,11 +173,28 @@ def wgbs_reads(rng, sample: Sample, lib: dict, contig_bp):
     per = [int(round(lib["coverage"] * bp / (2 * L))) for bp in contig_bp]
     n_frag = sum(per)
     tid = np.repeat(np.arange(n_ctg), per)
-    flen = np.clip(np.rint(_fixed(lambda g: g.normal(
-        lib["insert_mean"], lib["insert_sd"], n_frag), rng)),
-        lib["insert_min"], lib["insert_max"]).astype(np.int64)
+    flen = insert_sizes(rng, lib, n_frag)
     bp = np.asarray(contig_bp)[tid]
     f0 = (rng.random(n_frag) * (bp - flen)).astype(np.int64)
+    return pair_records(rng, lib, tid, flen, f0)
+
+
+def insert_sizes(rng, lib: dict, n: int) -> np.ndarray:
+    """`n` fragment lengths ~N(insert_mean, insert_sd) clipped to
+    [insert_min, insert_max], from the fixed multiset in an order drawn
+    from `rng`."""
+    return np.clip(np.rint(_fixed(lambda g: g.normal(
+        lib["insert_mean"], lib["insert_sd"], n), rng)),
+        lib["insert_min"], lib["insert_max"]).astype(np.int64)
+
+
+def pair_records(rng, lib: dict, tid, flen, f0):
+    """Read specs (unsorted) of directional paired-end reads of
+    `read_length` from fragments [f0, f0 + flen) on contigs `tid`: strand,
+    haplotype, marked PCR duplicates, layouts (soft clips, indels),
+    singletons and mapping qualities drawn at the library's rates."""
+    L = lib["read_length"]
+    n_frag = len(f0)
     ot = _exact(rng, n_frag, [0.5]) == 1
     hap = _exact(rng, n_frag, [0.5])
     mol = np.arange(n_frag, dtype=np.int64)

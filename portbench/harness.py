@@ -2,12 +2,15 @@
 passes, the output check, the result line.
 
 Everything a cell needs is found by name: the cell in `BENCHMARK.json`,
-its configuration at the file that entry names, its traffic at
+its configuration at the file that entry names, the configuration's
+library protocol at `portbench/gen/protocols/<protocol>.py`, its traffic at
 `portbench/traffic/<traffic>.json`, each per-layer metric's reader at
 `portbench/metrics/<metric name>.py`. A pass is one whole job as a user
 runs it: `bs_call_tpu_torch.cli.main(argv, tracer=Tracer())` over the
-cell's BAM, reference and dbSNP index, writing a BCF and a JSON report
-under TMPDIR."""
+cell's BAM, reference and dbSNP index (and, where the library's protocol
+gives regions, their BED as `-C`), writing a BCF and a JSON report under
+TMPDIR. A cell whose end-to-end metrics take one from the device's
+timeline has its untraced window profiled on the card alone."""
 
 from __future__ import annotations
 
@@ -80,10 +83,13 @@ def _remove_outputs(out_dir: str, tag: str) -> None:
 
 
 def _job_argv(ds, cfg, out_dir, tag, device):
-    return [ds.bam_path, "-r", ds.ref_path, "-D", ds.dbsnp_path,
+    argv = [ds.bam_path, "-r", ds.ref_path, "-D", ds.dbsnp_path,
             "-o", os.path.join(out_dir, f"{tag}.bcf"),
             "--report-file", os.path.join(out_dir, f"{tag}.json"),
             "-t", str(cfg["threads"]), "--device", device] + cfg["flags"]
+    if ds.bed_path is not None:
+        argv += ["-C", ds.bed_path]
+    return argv
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
@@ -135,6 +141,15 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         recorder = prof = anchor = None
+        # an untraced run whose cell reports an end-to-end metric of the
+        # device's timeline profiles the card alone over the window
+        device_e2e = (not trace and device == "cuda" and any(
+            m["source"] == "device_trace" for m in bench["end_to_end"]
+            if workload in m.get("workloads", [workload])))
+        if device_e2e:
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            prof.start()
         if trace:
             from portbench.spans import SpanRecorder
             from portbench.trace import Anchor
@@ -188,10 +203,17 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         t1_ns = time.perf_counter_ns()
         ru1 = resource.getrusage(resource.RUSAGE_SELF)
         dtrace = None
+        kernel_s = 0.0
         if trace:
             anchor.mark()
             prof.stop()
             recorder.uninstall()
+        elif device_e2e:
+            from portbench.trace import kernel_seconds
+
+            prof.stop()
+            kernel_s = kernel_seconds(prof)
+            del prof
         window_s = t1 - t0
         done = sum(ok for _t, ok in passes)
         mreads = ds.n_records * done / 1e6
@@ -216,7 +238,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             ctx = {
                 "passes": done, "mreads": mreads, "times": dict(times),
                 "counts": dict(counts), "trace": dtrace,
-                "window_s": window_s, "peaks": peaks,
+                "window_s": window_s, "cpu_s": cpu_s, "peaks": peaks,
                 "pileup_input": pileup_input(ds, cfg),
             }
             for m in bench["per_layer"]:
@@ -230,10 +252,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             breakdown = dtrace.breakdown()
         else:
             e2e = {
-                "reads_per_s": (mreads * 1e6 / window_s, "reads/s"),
-                "host_cpu_s_per_mread": (
-                    cpu_s / mreads if mreads else None, "s/Mread"),
                 "setup_s": (setup_s, "s"),
+                "kernel_ms_per_mread": (
+                    1e3 * kernel_s / mreads if kernel_s and mreads else None,
+                    "ms/Mread"),
             }
             for m in bench["end_to_end"]:
                 if workload not in m.get("workloads", [workload]):
@@ -246,7 +268,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
               f"{setup_s:.3f} s; pass walls "
               + json.dumps([round(w, 3) for w in walls]) + "; stages "
               + json.dumps({k: round(v, 3) for k, v in times.items()})
-              + " counts " + json.dumps(dict(counts)), file=log)
+              + " counts " + json.dumps(dict(counts))
+              + (f"; device kernels {kernel_s:.6f} s" if device_e2e else ""),
+              file=log)
         # the output check: the kept pass against the reference
         checks = []
         if kept is not None:

@@ -29,8 +29,13 @@ def test_sound_run_is_correct(cell):
     assert r["correct"], r["compared"]
     assert list(r) == ["correct", "attempted", "failed", "metrics",
                        "device", "compared"]
-    assert set(r["metrics"]) == {"reads_per_s", "host_cpu_s_per_mread",
-                                 "setup_s"}
+    bench = harness.load_cell(cell)[0]
+    # no card: no device time, so only the host's clock's metrics
+    assert set(r["metrics"]) == {
+        m["name"] for m in bench["end_to_end"]
+        if cell in m.get("workloads", [cell])
+        and m["source"] == "host_clock"}
+    assert "setup_s" in r["metrics"]
     assert r["compared"]["sites_differ"]["value"] == 0
     if cell == "rrbs":
         assert r["compared"]["report_differ"]["value"] == 0

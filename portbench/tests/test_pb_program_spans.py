@@ -51,3 +51,12 @@ def test_job_fixed_reader():
                         ) == 0.5
     assert _read_metric(name, _ctx({"call": 5.0})) is None
     assert _read_metric(name, _ctx(t, passes=0)) is None
+
+
+def test_host_readers():
+    ctx = dict(_ctx(), window_s=4.0, cpu_s=10.0)
+    assert _read_metric("host.reads_per_s", ctx) == 500_000.0
+    assert _read_metric("host.cpu_s_per_mread", ctx) == 5.0
+    ctx["mreads"] = 0
+    assert _read_metric("host.reads_per_s", ctx) is None
+    assert _read_metric("host.cpu_s_per_mread", ctx) is None

@@ -24,6 +24,16 @@ def _device_events(prof):
     return dev, host
 
 
+def kernel_seconds(prof) -> float:
+    """Seconds of every kernel (not a copy or a set) that a stopped profiler
+    saw on a card. For a profiler started just before the window and stopped
+    once the card has finished the window's work, so that every kernel it
+    saw lies in the window."""
+    dev, _host = _device_events(prof)
+    return sum(e - s for n, s, e in dev
+               if not n.startswith(("Memcpy", "Memset"))) / 1e9
+
+
 class Anchor:
     """Ties the host's perf_counter clock to the profiler's: a named
     `record_function` range whose start the profiler records, at a host
