@@ -17,6 +17,9 @@
 // returns when all n are done. Concurrent pool_run calls from
 // different Python threads interleave their items on the same workers.
 // Nested calls (fn itself calling pool_run) run inline — no deadlock.
+// The Job lives on the submitter's stack, and a worker touches it only
+// while holding j.m after its last item, so run returning means that
+// no worker holds it.
 // Fork safety: an atfork child handler abandons the parent's workers
 // and re-creates the pool lazily (shard workers fork via
 // multiprocessing on some platforms).
@@ -42,11 +45,13 @@ int pool_size();  // declared in bsc_common.h too; definition below
 
 namespace {
 
+// `done` is guarded by `m`: counting an item and waking the submitter
+// are one locked step, after which the worker reads nothing of the Job.
 struct Job {
     const std::function<void(int)> *fn;
     std::atomic<int> next{0};
     int n = 0;
-    std::atomic<int> done{0};
+    int done = 0;
     std::mutex m;
     std::condition_variable cv;
 };
@@ -96,20 +101,13 @@ class Pool {
                 }
         }
         std::unique_lock<std::mutex> lk(j.m);
-        j.cv.wait(lk, [&]() {
-            return j.done.load(std::memory_order_acquire) >= j.n;
-        });
+        j.cv.wait(lk, [&]() { return j.done >= j.n; });
     }
 
   private:
     static void finish_one(Job &j) {
-        int d = j.done.fetch_add(1, std::memory_order_acq_rel) + 1;
-        if (d >= j.n) {
-            // the submitter may be about to wait: take the job mutex so
-            // the notify can't slip between its predicate check and wait
-            std::lock_guard<std::mutex> lk(j.m);
-            j.cv.notify_one();
-        }
+        std::lock_guard<std::mutex> lk(j.m);
+        if (++j.done == j.n) j.cv.notify_one();
     }
 
     void worker() {
