@@ -299,21 +299,21 @@ def pack_fields(fields: dict):
     return torch.cat(parts)
 
 
-def unpack_fields(buf, n: int, rows: int | None = None):
+def unpack_fields(buf, n: int, rows: int | None = None, start: int = 0):
     """Views of a packed buffer of n rows (K3's or `pack_fields`'), numpy
     views of a numpy buffer and tensor views of a tensor, each sliced to
-    its first `rows` rows."""
+    `rows` rows from row `start` (all n by default)."""
     is_tensor = isinstance(buf, torch.Tensor)
     nbytes = buf.numel() if is_tensor else buf.nbytes
     if buf.ndim != 1 or nbytes != n * ROW_BYTES:
         raise ValueError(f"packed buffer of {nbytes} bytes, {n} rows")
-    rows = n if rows is None else rows
+    end = n if rows is None else start + rows
     out = {}
     o = 0
     for name, dt, k in LAYOUT:
         size = n * k * dt.itemsize
         a = buf[o:o + size].view(dt if is_tensor else _NP_DTYPE[dt])
-        out[name] = (a.reshape(n, k) if k > 1 else a)[:rows]
+        out[name] = (a.reshape(n, k) if k > 1 else a)[start:end]
         o += size
     return out
 

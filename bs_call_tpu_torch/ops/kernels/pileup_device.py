@@ -296,6 +296,30 @@ def tile_rows(starts, n_rows: int, n_pos: int, l_cap: int):
     return out
 
 
+def _rows_in(reads: dict, lo: int, hi: int):
+    """The rows of a read batch that can touch positions [lo, hi], sorted
+    by start (stable)."""
+    starts = reads["starts"]
+    keep = np.nonzero((starts <= hi) & (starts + reads["lens"] - 1 >= lo))[0]
+    return keep[np.argsort(starts[keep], kind="stable")]
+
+
+def _fill_batch(parts, r_pad: int, l_cap: int):
+    """The (r_pad, l_cap) batch of parts [(reads, rows, shift)]: each
+    part's rows in turn, their starts plus shift, zero padding after."""
+    rd = np.zeros((r_pad, l_cap), np.uint8)
+    cols = [np.zeros(r_pad, np.int32) for _ in range(4)]
+    i = 0
+    for reads, rows, shift in parts:
+        j = i + len(rows)
+        rd[i:j, :reads["rd"].shape[1]] = reads["rd"][rows]
+        cols[0][i:j] = reads["starts"][rows] + shift
+        for a, k in zip(cols[1:], ("ori", "strand", "mapq")):
+            a[i:j] = reads[k][rows]
+        i = j
+    return (rd, *cols)
+
+
 def pad_read_batch(reads: dict, lo: int, hi: int, r_pad: int, l_cap: int):
     """Slice a block's read batch to the rows that can touch positions
     [lo, hi] (block-relative), sort them by start (stable), shift starts
@@ -305,21 +329,25 @@ def pad_read_batch(reads: dict, lo: int, hi: int, r_pad: int, l_cap: int):
     of the rows changes no bit; K12 needs it to find a tile's rows
     (`tile_rows`). Padding rows are all-zero bytes: q==0 is never live, so
     they contribute to no segment regardless of their start."""
-    starts = reads["starts"]
-    lens = reads["lens"]
-    keep = np.nonzero((starts <= hi) & (starts + lens - 1 >= lo))[0]
-    n = len(keep)
-    if n > r_pad or reads["rd"].shape[1] > l_cap:
+    keep = _rows_in(reads, lo, hi)
+    if len(keep) > r_pad or reads["rd"].shape[1] > l_cap:
         return None
-    keep = keep[np.argsort(starts[keep], kind="stable")]
-    L = reads["rd"].shape[1]
-    rd = np.zeros((r_pad, l_cap), np.uint8)
-    rd[:n, :L] = reads["rd"][keep]
-    out_starts = np.zeros(r_pad, np.int32)
-    out_starts[:n] = starts[keep] - lo
-    cols = []
-    for k in ("ori", "strand", "mapq"):
-        a = np.zeros(r_pad, np.int32)
-        a[:n] = reads[k][keep]
-        cols.append(a)
-    return (rd, out_starts, *cols)
+    return _fill_batch([(reads, keep, -lo)], r_pad, l_cap)
+
+
+def pack_read_batch(parts, l_cap: int):
+    """Several blocks' read batches as one chunk's: parts [(reads, lo,
+    hi, off)], each block's window [lo, hi] placed at chunk position off.
+    Each part's rows as `pad_read_batch` keeps them, their starts shifted
+    to off, the parts in turn; rows padded to a power of two of at least
+    1024, width to l_cap (at least every part's). With parts in order of
+    off, far enough apart that no part's rows start past the next part's
+    (`TorchCallEngine.pack_offsets`), the live rows stay sorted by start.
+    Returns ((rd, starts, ori, strand, mapq), live rows)."""
+    rows = [_rows_in(reads, lo, hi) for reads, lo, hi, _off in parts]
+    n = sum(map(len, rows))
+    r_pad = 1024
+    while r_pad < n:
+        r_pad *= 2
+    return _fill_batch([(reads, keep, off - lo) for (reads, lo, _hi, off), keep
+                        in zip(parts, rows)], r_pad, l_cap), n

@@ -16,7 +16,8 @@ on the device the caller passes:
   `soa["dev_prep"]`: the emitter uses every row K3 did not flag and
   recomputes the rest on the host, as does the host Fisher test; with it
   off (`fused_ll_f64`) the host computes Fisher and the emit fields for
-  every row;
+  every row. `call_blocks_soa` calls several small blocks in one such
+  call, each at its own tile-aligned offset of the chunk;
 * column tier: host-built pileup columns go through K2, in f64 (exact)
   or f32 (`--no-exact`), in fixed chunks of `batch_positions` (the tail
   zero-padded) with up to three in flight (`_pipe_chunks`, the JAX
@@ -47,6 +48,7 @@ device and are counted in `tier_positions`.
 from __future__ import annotations
 
 import contextlib
+import itertools
 from collections import deque
 from typing import List, Optional
 
@@ -67,10 +69,11 @@ from bs_call_tpu_torch.ops.kernels.emit_device import (
 from bs_call_tpu_torch.ops.kernels.pileup_device import (
     fused_ll_emit,
     fused_ll_f64,
-    pad_read_batch,
+    pack_read_batch,
     sharded_fused_ll_f64,
     tile_rows,
 )
+from bs_call_tpu_torch.ops.kernels.pileup_genotype_cuda import MAX_L, TILE
 from bs_call_tpu_torch.ops.params import ModelParams, model_tables
 from bs_call_tpu_torch.ops.postprocess import aggregate_pileup, fisher_strand
 from bs_call_tpu_torch.output.site import SiteCall
@@ -153,6 +156,8 @@ class TorchCallEngine:
         # emit_risk those of them flagged for the host
         self.tier_positions = dict.fromkeys(TIERS, 0)
         self.fused_chunks = 0  # chunks the fused tier carried
+        # blocks those chunks carried (several a chunk in `call_blocks_soa`)
+        self.fused_blocks = 0
         # chunks of batch_positions the column tier carried (one K2 launch
         # each on one device, one a slab over several)
         self.column_chunks = 0
@@ -180,41 +185,81 @@ class TorchCallEngine:
         self.tracer.count("d2h_bytes", a.nbytes)
         return a
 
+    def _n_pos(self) -> int:
+        """The fused tier's chunk width: runner chunks are at most
+        max(batch_positions, 1024) + 16 positions."""
+        return max(self.cfg.batch_positions, 1024) + self._FUSED_PAD
+
+    def pack_offsets(self, sizes, width: int):
+        """Where one fused call places blocks of `sizes` positions, side by
+        side, whose reads are at most `width` bytes: the first at 0, each
+        segment from a multiple of TILE with l_cap + 1 positions or more
+        after it before the next segment or, but for a lone block, the
+        chunk's end (l_cap: `width` rounded up to a power of two, at least
+        64), so ceil((size + l_cap + 1) / TILE) tiles a segment. Returns
+        the offsets, or None where the blocks do not fit one call."""
+        n_pos = self._n_pos()
+        if width > MAX_L:
+            return None
+        if len(sizes) == 1:
+            return [0] if sizes[0] <= n_pos else None
+        gap = self._pow2(width, 64) + 1
+        offs = list(itertools.accumulate(
+            (-(-(sz + gap) // TILE) * TILE for sz in sizes[:-1]), initial=0))
+        return offs if offs[-1] + sizes[-1] + gap <= n_pos else None
+
     def _call_fused(self, reads: dict, lo: int, hi: int, ref_codes, agg,
                     covered_idx):
-        """Fused tier over block-relative window [lo, hi]. Returns
-        (gt_prob, max_gt, margin, off, prep) for the covered rows, with
-        margin 0 on rows whose device quals differ from the host
-        aggregate, or None to hand the chunk to the column tier. prep is
-        the emit tier's dict of window-aligned numpy views ([:sz] of the
+        """Fused tier over one block-relative window [lo, hi]: the
+        `_call_fused_pack` of a pack of one."""
+        return self._call_fused_pack(
+            [(reads, lo, hi, ref_codes, agg, covered_idx)])[0]
+
+    def _call_fused_pack(self, parts):
+        """Fused tier over blocks placed side by side in one chunk
+        (`pack_offsets`): parts [(reads, lo, hi, ref_codes, agg,
+        covered_idx)], each a block-relative window [lo, hi] of a block's
+        read batch. Returns per part (gt_prob, max_gt, margin, off, prep)
+        for its covered rows, with margin 0 on rows whose device quals
+        differ from the host aggregate, or None to hand the part to the
+        column tier (a lone part whose shape the fused tier does not take,
+        a part with more than max(16, 1%) quals mismatches). Parts that do
+        not fit one chunk are called one at a time. prep is the emit
+        tier's dict of the part's numpy views ([off, off + sz) of the
         packed buffer, `emit_device.unpack_fields`), with quals-mismatch
-        rows flagged risky, or None when the tier is off. Stages
-        `call.prep`, `call.h2d`, `call.launch`, `call.d2h` (which waits
-        for the card) and `call.finish`; counters `h2d_bytes` and
-        `d2h_bytes` (over a mesh, the host batch once: rows two slabs
-        share cross twice)."""
+        rows and the first row flagged risky, or None when the tier is
+        off.
+
+        A segment starts on a tile, and no row of another part reaches it
+        or its next position: every position of it sums the rows and ref
+        of the block's own call, and K3's row after its last row sees the
+        same overhang. Only its first row's left neighbour differs (the
+        gap's last position, not "unknown"): flagged, as K3 flags row 0
+        of a lone call. Stages `call.prep`, `call.h2d`, `call.launch`,
+        `call.d2h` (which waits for the card) and `call.finish`; counters
+        `h2d_bytes` and `d2h_bytes` (over a mesh, the host batch once:
+        rows two slabs share cross twice)."""
         tr = self.tracer
+        n_pos = self._n_pos()
+        sizes = [hi - lo + 1 for _rd, lo, hi, *_ in parts]
+        L = max(p[0]["rd"].shape[1] for p in parts)
+        offs = self.pack_offsets(sizes, L)
+        if offs is None:
+            if len(parts) > 1:
+                return [self._call_fused_pack([p])[0] for p in parts]
+            self._reroute("shape", len(parts[0][5]),
+                          f"{sizes[0]} positions, reads {L} long")
+            return [None]
         with tr.stage("call.prep"):
-            sz = hi - lo + 1
-            # runner chunks are at most max(batch_positions, 1024) + 16
-            n_pos = max(self.cfg.batch_positions, 1024) + self._FUSED_PAD
-            L = reads["rd"].shape[1]
-            n_cov = len(covered_idx)
-            padded = None
-            if sz <= n_pos and L <= 2048:
-                starts = reads["starts"]
-                n_rows = int(((starts <= hi)
-                              & (starts + reads["lens"] - 1 >= lo)).sum())
-                r_pad = self._pow2(max(n_rows, 1), 1024)
-                l_cap = self._pow2(L, 64)
-                padded = pad_read_batch(reads, lo, hi, r_pad, l_cap)
-            if padded is None:
-                self._reroute("shape", n_cov,
-                              f"{sz} positions, reads {L} long")
-                return None
+            l_cap = self._pow2(L, 64)
+            padded, n_rows = pack_read_batch(
+                [(p[0], p[1], p[2], o) for p, o in zip(parts, offs)], l_cap)
             ref_pad = np.zeros(n_pos, np.int32)
-            ref_pad[:sz] = np.asarray(ref_codes, dtype=np.int32)
+            for p, o, sz in zip(parts, offs, sizes):
+                ref_pad[o:o + sz] = p[3]
             tiles = tile_rows(padded[1], n_rows, n_pos, l_cap)
+            covered_idx = np.concatenate([p[5] + o
+                                          for p, o in zip(parts, offs)])
         with tr.stage("call.h2d"):
             if len(self.devices) > 1:
                 # each device copies its slab's rows from the host
@@ -246,28 +291,44 @@ class TorchCallEngine:
             )
             if packed is not None:
                 packed = self._to_host(packed)
+        res = []
         with tr.stage("call.finish"):
-            mism = (dev_q.astype(np.int32)
-                    != agg["quals"][covered_idx]).any(axis=1)
-            n_mism = int(mism.sum())
-            if n_mism > max(16, n_cov // 100):
-                self._reroute("quals", n_cov, f"{n_mism} quals mismatches")
-                return None
-            margin[mism] = 0.0  # the oracle recomputes these from host inputs
-            self.tier_positions["fused"] += n_cov
-            self.fused_chunks += 1
-            prep = None
-            if packed is not None:
-                prep = unpack_fields(packed, n_pos, sz)
-                prep["fs_lo"] = np.zeros(sz)
-                # the device built these rows from quals the host
-                # disagrees with: their fields are stale
-                prep["risk"][covered_idx[mism]] = True
-                self.tier_positions["emit"] += n_cov
-                self.tier_positions["emit_risk"] += int(
-                    prep["risk"][covered_idx].sum()
-                )
-        return gt_prob, max_gt, margin, off, prep
+            k = 0
+            for (_rd, _lo, _hi, _ref, agg, cov), o, sz in zip(parts, offs,
+                                                             sizes):
+                n_cov = len(cov)
+                rows = slice(k, k + n_cov)
+                k += n_cov
+                mism = (dev_q[rows].astype(np.int32)
+                        != agg["quals"][cov]).any(axis=1)
+                n_mism = int(mism.sum())
+                if n_mism > max(16, n_cov // 100):
+                    self._reroute("quals", n_cov,
+                                  f"{n_mism} quals mismatches")
+                    res.append(None)
+                    continue
+                # the oracle recomputes these from host inputs
+                margin[rows][mism] = 0.0
+                self.tier_positions["fused"] += n_cov
+                prep = None
+                if packed is not None:
+                    prep = unpack_fields(packed, n_pos, sz, o)
+                    prep["fs_lo"] = np.zeros(sz)
+                    # the device built these rows from quals the host
+                    # disagrees with: their fields are stale
+                    prep["risk"][cov[mism]] = True
+                    prep["risk"][0] = True
+                    self.tier_positions["emit"] += n_cov
+                    self.tier_positions["emit_risk"] += int(
+                        prep["risk"][cov].sum()
+                    )
+                res.append((gt_prob[rows], max_gt[rows], margin[rows],
+                            off[rows], prep))
+            n_fused = sum(r is not None for r in res)
+            if n_fused:
+                self.fused_chunks += 1
+                self.fused_blocks += n_fused
+        return res
 
     def _reroute(self, why: str, n: int, detail: str) -> None:
         self.tier_positions[f"{why}_reroute"] += n
@@ -421,8 +482,40 @@ class TorchCallEngine:
                 )
         return gt_prob, max_gt, margin, off
 
+    def call_blocks_soa(self, blocks):
+        """`call_block_soa` of each of several blocks, blocks [(counts2,
+        qual_sum, mapq2_sum, ref_codes, agg, reads)] its arguments, with
+        the fused tier of every block that has reads and covered positions
+        in one call (`_call_fused_pack`): one H2D of the packed read
+        batch, one K12 + K3 launch, one D2H. Each result is the block's
+        own call's, array for array, but for the device emit fields that
+        `dev_prep` leaves to the host on rows flagged `risk`. Blocks that
+        do not fit one chunk (`pack_offsets`) are called one at a time; a
+        block whose quals mismatch goes to the column tier alone."""
+        with self.tracer.stage("call.prep"):
+            aggs = [aggregate_pileup(c2, qs, m2) if agg is None else agg
+                    for c2, qs, m2, _ref, agg, _rd in blocks]
+            covs = [np.nonzero(a["n"] > 0)[0] for a in aggs]
+        pack = [i for i, b in enumerate(blocks)
+                if self.cfg.exact and b[5] is not None and len(covs[i])]
+        fused = {}
+        if len(pack) > 1:
+            parts = []
+            for i in pack:
+                rd_dict, lo = blocks[i][5]
+                parts.append((rd_dict, lo, lo + len(aggs[i]["n"]) - 1,
+                              blocks[i][3], aggs[i], covs[i]))
+            fused = dict(zip(pack, self._call_fused_pack(parts)))
+        return [
+            self.call_block_soa(c2, qs, m2, ref, agg=agg,
+                                reads=None if i in fused else reads,
+                                fused=fused.get(i))
+            for i, ((c2, qs, m2, ref, _agg, reads), agg)
+            in enumerate(zip(blocks, aggs))
+        ]
+
     def call_block_soa(self, counts2, qual_sum, mapq2_sum, ref_codes,
-                       agg=None, reads=None):
+                       agg=None, reads=None, fused=None):
         """counts2 [sz,2,8], qual_sum [sz,8], mapq2_sum [sz],
         ref_codes [sz]. Returns a dict of position-major arrays:
         covered [sz] bool; counts [sz,8]; quals [sz,8]; mq, aq [sz];
@@ -431,7 +524,9 @@ class TorchCallEngine:
         `agg` may carry natively precomputed aggregates. `reads`, when
         given, is (read_batch_dict, lo) with lo the block-relative
         offset of this window's first position: it enables the fused
-        tier (reads cross H2D instead of pileup columns). Stages on
+        tier (reads cross H2D instead of pileup columns). `fused`, when
+        given, is the block's share of a packed call (`call_blocks_soa`),
+        which stands in for its own fused call. Stages on
         `self.tracer`: `call.prep`, `_call_fused`'s, `call.column` (the
         column tier) and `call.finish` (`_finish_exact`, the emit tier's
         risk bands, the host Fisher test)."""
@@ -452,8 +547,7 @@ class TorchCallEngine:
                 cref = np.asarray(ref_codes, dtype=np.int32)[covered]
         prep = None
         if len(covered):
-            fused = None
-            if reads is not None and self.cfg.exact:
+            if fused is None and reads is not None and self.cfg.exact:
                 rd_dict, lo = reads
                 fused = self._call_fused(
                     rd_dict, lo, lo + sz - 1, ref_codes, agg, covered
@@ -542,7 +636,7 @@ class HostCallEngine(TorchCallEngine):
         self.devices = []
         self.tracer = NULL_TRACER
         self.tier_positions = dict.fromkeys(TIERS, 0)
-        self.fused_chunks = self.column_chunks = 0
+        self.fused_chunks = self.fused_blocks = self.column_chunks = 0
         self._model = genotype_native.native_model(
             cfg.under_conv, cfg.over_conv, cfg.ref_bias
         )

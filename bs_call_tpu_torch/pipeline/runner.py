@@ -50,8 +50,9 @@ def run_caller(cfg: CallerConfig, device: torch.device | str,
     the Python record path, as `bs_call_tpu --device numpy` runs. Both
     write the same bytes. Returns (stats, contig_table). The tracer, when
     given, also receives the engine's per-tier position counts as
-    `tier_<name>` counters and the number of chunks the fused and the
-    column tiers carried as `fused_chunks` and `column_chunks`."""
+    `tier_<name>` counters, the number of chunks the fused and the
+    column tiers carried as `fused_chunks` and `column_chunks`, and the
+    blocks the fused chunks carried as `fused_blocks`."""
     from bs_call_tpu_torch.ops.genotype_native import _n_threads
     from bs_call_tpu_torch.utils.trace import Tracer
 
@@ -142,6 +143,7 @@ def run_caller(cfg: CallerConfig, device: torch.device | str,
     for name, n in engine.tier_positions.items():
         tracer.count(f"tier_{name}", n)
     tracer.count("fused_chunks", engine.fused_chunks)
+    tracer.count("fused_blocks", engine.fused_blocks)
     tracer.count("column_chunks", engine.column_chunks)
     tracer.report()
     return stats, table
@@ -531,7 +533,10 @@ def process_contig_blocks_native(
     `rowe` (a HostRowEngine, which this call closes) every staged block of
     9 or more positions runs load / model / emit natively; the others are
     collected and go through `engine.call_block_soa`, in the same ordered
-    emit worker.
+    emit worker. Consecutive whole blocks of a contig that need no
+    streaming and carry reads are called together while they fit one
+    fused chunk (`engine.call_blocks_soa`, `pack_offsets`): the packs
+    follow from the blocks alone, never from timing.
 
     Three threads, each with its stages on `tracer`: the producer
     (`ingest.native`, `ingest.contig`, `ingest.pileup`, `ingest.reads`,
@@ -689,13 +694,16 @@ def process_contig_blocks_native(
                         emit_err.append(e)
                 free_slots.put(slot)
                 continue
-            if emit_err:
-                continue  # drain so the producer can't block
-            try:
-                with tracer.stage("emit", block=item[1]):
-                    _emit_block_soa(cfg, emitter, *item[2])
-            except Exception as e:
-                emit_err.append(e)
+            # ("py", [(bid, _emit_block_soa's args)]): a pack's blocks
+            # or one block's chunk
+            for bid, args in item[1]:
+                if emit_err:
+                    break  # drain so the producer can't block
+                try:
+                    with tracer.stage("emit", block=bid):
+                        _emit_block_soa(cfg, emitter, *args)
+                except Exception as e:
+                    emit_err.append(e)
 
     def emit_put(item):
         # the caller waits here only when the emit worker sets the pace
@@ -708,6 +716,26 @@ def process_contig_blocks_native(
     et = threading.Thread(target=emit_worker, name="bs_call emit",
                           daemon=True)
     et.start()
+    CHUNK = max(cfg.batch_positions, 1024)
+    # consecutive whole blocks called in one fused call
+    # (`engine.call_blocks_soa`): [(bid, call args, emit args)], their
+    # sizes and widest read
+    pack, pack_sizes, pack_width = [], [], 0
+
+    def flush():
+        nonlocal pack_width
+        if not pack:
+            return
+        with tracer.stage("call", block=pack[0][0]):
+            soas = engine.call_blocks_soa([p[1] for p in pack])
+        if emit_err:
+            raise emit_err[0]
+        emit_put(("py", [(bid, (ctg, soa, *rest))
+                         for (bid, _, (ctg, *rest)), soa in zip(pack, soas)]))
+        pack.clear()
+        pack_sizes.clear()
+        pack_width = 0
+
     try:
         while True:
             with tracer.stage("ingest"):
@@ -715,9 +743,11 @@ def process_contig_blocks_native(
             if isinstance(blk, Exception):
                 raise blk
             if blk is None:
+                flush()
                 break
             ctg = table.contigs[table.tid2id[blk["tid"]]]
             if contig_seq is None or contig_seq.name != ctg.name:
+                flush()
                 tracer.progress(f"Processing contig {ctg.name}")
                 contig_seq = blk["seq"]
                 ctg.gc_start_pos = contig_seq.start_pos
@@ -729,6 +759,26 @@ def process_contig_blocks_native(
             tracer.count("templates", blk["n_templates"])
             tracer.count("positions", sz)
             bid = blk["bid"]
+            rd_blk = blk.get("reads")
+            partial = blk.get("partial", False)
+            if (blk.get("kind") != "row" and rd_blk and not partial
+                    and sz <= CHUNK + 16):
+                # a whole block that needs no streaming: packed with its
+                # neighbours while the chunk has room
+                width = max(pack_width, rd_blk["rd"].shape[1])
+                if pack and engine.pack_offsets([*pack_sizes, sz],
+                                                width) is None:
+                    flush()
+                    width = rd_blk["rd"].shape[1]
+                ref_window = sequence_window(contig_seq, x, sz + 2)
+                pack.append((bid, (
+                    blk["counts2"], blk["qual_sum"], blk["mapq2_sum"],
+                    ref_window[:sz], blk.get("agg"), (rd_blk, 0),
+                ), (ctg, ref_window, x, y, 0)))
+                pack_sizes.append(sz)
+                pack_width = width
+                continue
+            flush()
             if blk.get("kind") == "row":
                 with tracer.stage("call", block=bid):
                     engine.tier_positions["oracle"] += rowe.model(
@@ -748,7 +798,6 @@ def process_contig_blocks_native(
             # regions that each span a whole contig (a shard worker's)
             # stream as a run without regions does: unstreamed, a block
             # wider than a chunk leaves the fused tier for the column tier.
-            CHUNK = max(cfg.batch_positions, 1024)
             stream = (
                 getattr(emitter, "vector", None) is not None
                 and sz > CHUNK + 16
@@ -758,7 +807,6 @@ def process_contig_blocks_native(
             # a partial staged range is a chunk of a still-open block:
             # its last rows stay held back (the next range re-supplies
             # the 4-row overlap, exactly like the in-range chunks below)
-            partial = blk.get("partial", False)
             s = x
             while True:
                 if stream and y - s + 1 > CHUNK + 16:
@@ -771,7 +819,6 @@ def process_contig_blocks_native(
                 sub_agg = (
                     {k: v[sl] for k, v in agg.items()} if agg else None
                 )
-                rd_blk = blk.get("reads")
                 with tracer.stage("call", block=bid):
                     soa = engine.call_block_soa(
                         blk["counts2"][sl], blk["qual_sum"][sl],
@@ -781,10 +828,10 @@ def process_contig_blocks_native(
                     )
                 if emit_err:
                     raise emit_err[0]
-                emit_put((
-                    "py", bid,
+                emit_put(("py", [(
+                    bid,
                     (ctg, soa, ref_window[s - x : e - x + 3], s, e, hold),
-                ))
+                )]))
                 if e == y:
                     break
                 s = e - 3

@@ -124,6 +124,37 @@ def test_wgbs_exact_bytes_and_tiers(wgbs, wgbs_want, splice_hits):
     assert counts["tier_emit"] == counts["tier_fused"]
     assert counts["tier_emit_risk"] <= counts["tier_emit"] // 50
     assert splice_hits["n"] > 0, "device emit fields never engaged"
+    # one block a contig, wider than a pack's segments: no block packs
+    assert counts["fused_blocks"] == counts["fused_chunks"] > 0
+
+
+def test_rrbs_packed_blocks_bytes(tmp_path):
+    """A small RRBS slab (the benchmark's rrbs_mspi_se50 at a tenth of its
+    size): its hundreds of small blocks are called many to a fused call
+    (`call_blocks_soa`), and the BCF bytes and the JSON report equal
+    bs_call_tpu's on the same input."""
+    import json
+
+    from bs_call_tpu import cli as jax_cli
+    from portbench.gen.dataset import make_dataset
+    from portbench.harness import ROOT, _job_argv
+
+    with open(os.path.join(ROOT, "portbench", "configs",
+                           "rrbs_mspi_se50.json")) as f:
+        bench_cfg = json.load(f)
+    ds = make_dataset(bench_cfg, 2**31 + 23, str(tmp_path / "in"), scale=0.1)
+    tracer = Tracer()
+    got = _job_argv(ds, bench_cfg, str(tmp_path), "port", "cpu")
+    assert cli.main(got, tracer=tracer) == 0
+    want = _job_argv(ds, bench_cfg, str(tmp_path), "ref", "cpu")
+    assert jax_cli.main(want) == 0
+    out = {tag: ((tmp_path / f"{tag}.bcf").read_bytes(),
+                 strip_date((tmp_path / f"{tag}.json").read_text()))
+           for tag in ("port", "ref")}
+    assert out["port"] == out["ref"]
+    counts = tracer.counts
+    assert counts["tier_column"] == 0 and counts["tier_fused"] > 1000
+    assert counts["fused_blocks"] >= 20 * counts["fused_chunks"] > 0
 
 
 def test_wgbs_emit_tier_off_bytes(wgbs, wgbs_want, splice_hits,
