@@ -145,13 +145,14 @@ class HostRowEngine:
         )
         return int(n_ties)
 
-    def emit(self, slot: int, emitter, ctg, hold_back: int,
+    def emit(self, slot: int, lag, ctg, hold_back: int,
              collect_stats: bool, fileobj) -> None:
-        """Format + write one block; carries the emitter's dedup / CpG
-        state exactly like VectorBlockEmitter.emit_block."""
-        if emitter.old_ctg is not ctg:
-            emitter.old_ctg = ctg
-            emitter.old_x = 0
+        """Format + write one block; carries the run's dedup / CpG state
+        (`lag`, an `output.site.LagState`) exactly like
+        VectorBlockEmitter.emit_block."""
+        if lag.old_ctg is not ctg:
+            lag.old_ctg = ctg
+            lag.old_x = 0
         gc_p, gc_len = None, 0
         ctg_stats = getattr(ctg, "ctg_stats", None)
         if collect_stats and ctg_stats is not None and \
@@ -159,9 +160,9 @@ class HostRowEngine:
             gc = np.ascontiguousarray(ctg_stats.gc, dtype=np.uint8)
             self._gc_keep = gc
             gc_p, gc_len = _P(gc, _u8p), len(gc)
-        old_x = ctypes.c_int64(int(emitter.old_x))
-        pcx = ctypes.c_int64(int(emitter.prev_cpg_x))
-        pcf = ctypes.c_uint8(1 if emitter.prev_cpg_flt else 0)
+        old_x = ctypes.c_int64(int(lag.old_x))
+        pcx = ctypes.c_int64(int(lag.prev_cpg_x))
+        pcf = ctypes.c_uint8(1 if lag.prev_cpg_flt else 0)
         while True:
             n = self._lib.bsre_emit(
                 ctypes.c_void_p(self._h), ctypes.c_int32(slot),
@@ -178,8 +179,8 @@ class HostRowEngine:
             if n >= 0:
                 break
             self._out = np.empty(len(self._out) * 2, dtype=np.uint8)
-        emitter.old_x = int(old_x.value)
-        emitter.prev_cpg_x = int(pcx.value)
-        emitter.prev_cpg_flt = bool(pcf.value)
+        lag.old_x = int(old_x.value)
+        lag.prev_cpg_x = int(pcx.value)
+        lag.prev_cpg_flt = bool(pcf.value)
         if n:
             fileobj.write(memoryview(self._out.data)[:n])

@@ -123,6 +123,19 @@ class SiteCall:
 
 
 @dataclass
+class LagState:
+    """`_print_vcf_entry`'s statics (print_vcf.c:32-527): the last emitted
+    contig and position (dedup) and the last '+'-strand CpG and its filter
+    (the CpG pair). One a run, shared by the scalar, the vector and the
+    row engine's emitter, read and written on the emit worker alone."""
+
+    old_ctg: object = None
+    old_x: int = 0
+    prev_cpg_x: int = 0
+    prev_cpg_flt: bool = False
+
+
+@dataclass
 class VcfSite:
     """Assembled record, ready for a VCF/BCF writer."""
 
@@ -193,11 +206,7 @@ class SiteEmitter:
         self.gt_store = [0] * 5
         self.gtm_store: List[Optional[SiteCall]] = [None] * 5
         self.rf_ctxt = [0] * 7
-        # _print_vcf_entry statics
-        self.old_ctg = None
-        self.old_x = 0
-        self.prev_cpg_x = 0
-        self.prev_cpg_flt = False
+        self.lag = LagState()
 
     # ---- push/flush pipeline (print_vcf.c:536-594) ----
 
@@ -259,11 +268,12 @@ class SiteEmitter:
         ctg = self.curr_ctg
         if x == 0:
             return
-        if self.old_ctg is not ctg:
-            self.old_ctg = ctg
-        elif x <= self.old_x:
+        lag = self.lag
+        if lag.old_ctg is not ctg:
+            lag.old_ctg = ctg
+        elif x <= lag.old_x:
             return
-        self.old_x = x
+        lag.old_x = x
         counts = gtm.counts
         dp1 = int(counts[:4].sum())
         d_inf = int(counts[4:].sum())
@@ -494,8 +504,8 @@ class SiteEmitter:
             a = b = 0
             cs = CS_STR[gt]
             if cs == "+":
-                self.prev_cpg_x = x
-                self.prev_cpg_flt = flt != 0
+                lag.prev_cpg_x = x
+                lag.prev_cpg_flt = flt != 0
                 if prf_ctxt[2:4] == "CG":
                     ref_cpg = True
                 a = int(counts[5])
@@ -504,12 +514,12 @@ class SiteEmitter:
             elif cs == "-":
                 if prf_ctxt[1:3] == "CG":
                     ref_cpg = True
-                if x - self.prev_cpg_x == 1:
+                if x - lag.prev_cpg_x == 1:
                     key = "CpG_ref" if ref_cpg else "CpG_nonref"
                     getattr(stats, key)[0] += 1
                     if ctg_stats:
                         getattr(ctg_stats, key)[0] += 1
-                    if not (self.prev_cpg_flt or flt):
+                    if not (lag.prev_cpg_flt or flt):
                         getattr(stats, key)[1] += 1
                         if ctg_stats:
                             getattr(ctg_stats, key)[1] += 1

@@ -430,11 +430,10 @@ def _native_format(fileobj, ctg, n, g, r, flt, mac1, prf_all, ctx_all,
 
 
 class VectorBlockEmitter:
-    """Block-vectorized text emission; shares dedup + CpG-pair state with
-    the caller through old_ctg/old_x/prev_cpg attributes (matching the
-    scalar emitter)."""
+    """Block-vectorized text emission; its dedup + CpG-pair state is the
+    run's `LagState`, shared with the scalar emitter."""
 
-    def __init__(self, cfg, fileobj, stats=None, dbsnp=None,
+    def __init__(self, cfg, fileobj, lag, stats=None, dbsnp=None,
                  bcf_writer=None):
         self.cfg = cfg
         self._f = fileobj
@@ -443,10 +442,7 @@ class VectorBlockEmitter:
         self.dbsnp = dbsnp
         self._dbsnp_ctg = None
         self._dbsnp_ctg_name = None
-        self.old_ctg = None
-        self.old_x = 0
-        self.prev_cpg_x = 0
-        self.prev_cpg_flt = False
+        self.lag = lag
         self._nacc = None  # native stats accumulator (lazy)
         self._nacc_tried = False
         self.tracer = NULL_TRACER  # the runner sets the job's
@@ -477,9 +473,10 @@ class VectorBlockEmitter:
         """
         tr = self.tracer
         sz = y - x + 1
-        if self.old_ctg is not ctg:
-            self.old_ctg = ctg
-            self.old_x = 0
+        lag = self.lag
+        if lag.old_ctg is not ctg:
+            lag.old_ctg = ctg
+            lag.old_x = 0
         rs_present = rs_selected = None
         if self.dbsnp is not None:
             with tr.stage("emit.dbsnp"):
@@ -525,11 +522,11 @@ class VectorBlockEmitter:
 
             # emission gating (covered, dedup, hom-ref skip, contig length)
             pos = np.arange(x, y + 1)
-            reach = covered & (pos > self.old_x)
+            reach = covered & (pos > lag.old_x)
             if hold_back:
                 reach = reach & (pos <= y - hold_back)
             if reach.any():
-                self.old_x = int(pos[reach].max())
+                lag.old_x = int(pos[reach].max())
             gtc = np.maximum(gt, 0)
             skip_homref = GT_FLAG_A[gtc, rfix] & (not self.cfg.all_positions)
             if rs_selected is not None:
@@ -749,7 +746,7 @@ class VectorBlockEmitter:
             )
         if self._nacc is not None:
             self._nacc.accumulate(
-                self, ctg, soa, pos, reach, idx, g, r, rf7, phred, qd,
+                self.lag, ctg, soa, pos, reach, idx, g, r, rf7, phred, qd,
                 fs_int, mq, flt, mac1, counts, cond_cg, rs_present,
             )
             return
@@ -854,12 +851,12 @@ class VectorBlockEmitter:
         last_plus = np.maximum.accumulate(plus_idx)
         prev_x = np.where(
             last_plus >= 0, pos_e[np.maximum(last_plus, 0)],
-            self.prev_cpg_x,
+            self.lag.prev_cpg_x,
         )
         prev_flt = np.where(
             last_plus >= 0,
             flt_full[np.maximum(last_plus, 0)] != 0,
-            self.prev_cpg_flt,
+            self.lag.prev_cpg_flt,
         )
         # for a minus row, its own last_plus excludes itself (plus/minus
         # disjoint), but the accumulate INCLUDES the current row for plus
@@ -879,8 +876,8 @@ class VectorBlockEmitter:
                 )
         if plus.any():
             last = int(np.nonzero(plus)[0][-1])
-            self.prev_cpg_x = int(pos_e[last])
-            self.prev_cpg_flt = bool(flt_full[last] != 0)
+            self.lag.prev_cpg_x = int(pos_e[last])
+            self.lag.prev_cpg_flt = bool(flt_full[last] != 0)
         cpg_ok = plus | minus
         ref_cpg = np.where(plus, ref_cpg_plus, ref_cpg_minus)
         a = np.where(plus, counts[:, 5], counts[:, 6]).astype(np.int64)

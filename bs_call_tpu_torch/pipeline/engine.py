@@ -610,12 +610,6 @@ class TorchCallEngine:
             soa["dev_prep"] = prep
         return soa
 
-    def call_block(self, counts2, qual_sum, mapq2_sum, ref_codes, agg=None):
-        """Object view of call_block_soa for the scalar emitter path."""
-        return soa_to_calls(self.call_block_soa(
-            counts2, qual_sum, mapq2_sum, ref_codes, agg=agg
-        ))
-
 
 class HostCallEngine(TorchCallEngine):
     """`--device numpy`: the engine without a torch device, as

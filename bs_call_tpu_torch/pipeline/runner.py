@@ -10,8 +10,12 @@ engine is a `TorchCallEngine` on the caller's device.
 
 from __future__ import annotations
 
+import itertools
 import os
+import queue
 import sys
+import threading
+from functools import partial
 
 import numpy as np
 import torch
@@ -36,6 +40,11 @@ from bs_call_tpu_torch.pipeline.engine import (
 )
 from bs_call_tpu_torch.pipeline.template import process_template
 from bs_call_tpu_torch.stats.meth_profile import meth_profile
+from bs_call_tpu_torch.utils.trace import NULL_TRACER, Tracer
+
+# blocks of fewer positions take the scalar emitter, and under the row
+# engine the host engine's call
+_MIN_VECTOR_POSITIONS = 9
 
 
 def run_caller(cfg: CallerConfig, device: torch.device | str,
@@ -54,7 +63,6 @@ def run_caller(cfg: CallerConfig, device: torch.device | str,
     column tiers carried as `fused_chunks` and `column_chunks`, and the
     blocks the fused chunks carried as `fused_blocks`."""
     from bs_call_tpu_torch.ops.genotype_native import _n_threads
-    from bs_call_tpu_torch.utils.trace import Tracer
 
     cfg.sanitize()
     if tracer is None:
@@ -195,51 +203,41 @@ def _open_output(cfg, table, reader, dbsnp, stats, out_fileobj,
         C.FT_UNKN,
     ):
         vector_emitter = VectorBlockEmitter(
-            cfg, out_fileobj, stats=stats, dbsnp=dbsnp
+            cfg, out_fileobj, emitter.lag, stats=stats, dbsnp=dbsnp
         )
     elif cfg.out_file_type == C.FT_VCF_GZ:
         vector_emitter = VectorBlockEmitter(
-            cfg, gz_writer, stats=stats, dbsnp=dbsnp
+            cfg, gz_writer, emitter.lag, stats=stats, dbsnp=dbsnp
         )
     elif cfg.out_file_type in (C.FT_BCF, C.FT_BCF_GZ):
         from bs_call_tpu_torch.native import load as _native_load
 
         if _native_load() is not None:
             vector_emitter = VectorBlockEmitter(
-                cfg, out_fileobj, stats=stats, dbsnp=dbsnp,
+                cfg, out_fileobj, emitter.lag, stats=stats, dbsnp=dbsnp,
                 bcf_writer=writer,
             )
     emitter.vector = vector_emitter
     return out_fileobj, close_out, writer, emitter, vector_emitter
 
 
-def _emit_block_soa(cfg, emitter, ctg, soa, ref_window, x, y,
-                    hold_back=0, region=None):
-    """Emit one block's already-called sites (no engine work). Sequential
-    per emitter: carries the reference's 2-position lag state across
-    blocks (print_vcf.c:529-594). ctg.curr_reg is owned by this (emit)
-    stage — producer threads must not touch it."""
+def _emit_block_soa(emitter, ctg, soa, ref_window, x, y, hold_back=0,
+                    region=None):
+    """Emit one block's already-called sites (no engine work) on the emit
+    worker, in block order: the run's `LagState` carries the reference's
+    2-position lag across blocks and emitters (print_vcf.c:529-594).
+    ctg.curr_reg is owned by this (emit) stage — producer threads must not
+    touch it."""
     ctg.curr_reg = region
-    ve = getattr(emitter, "vector", None)
-    sz = y - x + 1
     # NOTE: for blocks starting at x < 5 the reference's lag pipeline can
     # carry stale genotype slots from the previous contig into the first
     # pushes (print_vcf.c:563-570 shifts without clearing); that emits
     # degenerate rows (positions <= 0) in the reference. The vectorized
     # path assumes a clean lag state instead — a deliberate divergence.
-    regions_ok = not getattr(ctg, "regions", None) or all(
-        r.start <= 1 and r.stop >= ctg.seq_len for r in ctg.regions
-    )
-    if ve is not None and sz >= 9 and regions_ok:
-        ve.old_ctg = emitter.old_ctg
-        ve.old_x = emitter.old_x
-        ve.prev_cpg_x = emitter.prev_cpg_x
-        ve.prev_cpg_flt = emitter.prev_cpg_flt
-        ve.emit_block(ctg, soa, ref_window, x, y, hold_back=hold_back)
-        emitter.old_ctg = ve.old_ctg
-        emitter.old_x = ve.old_x
-        emitter.prev_cpg_x = ve.prev_cpg_x
-        emitter.prev_cpg_flt = ve.prev_cpg_flt
+    if y - x + 1 >= _MIN_VECTOR_POSITIONS and _vector_route(emitter,
+                                                            ctg.regions):
+        emitter.vector.emit_block(ctg, soa, ref_window, x, y,
+                                  hold_back=hold_back)
         return
     assert hold_back == 0  # streaming only runs on the vector path
     calls = soa_to_calls(soa)
@@ -248,13 +246,21 @@ def _emit_block_soa(cfg, emitter, ctg, soa, ref_window, x, y,
     emitter.flush()
 
 
-def _whole_contig_regions(table) -> bool:
-    """True when every -C region spans a full contig — then region
-    selection degenerates to contig selection, which the native pipeline
-    and the vectorized emitter handle via tid_keep."""
-    return bool(table.regions) and all(
-        r.start <= 1 and r.stop >= r.ctg.seq_len for r in table.regions
-    )
+def _whole_contigs(regions) -> bool:
+    """True when every -C region spans a full contig, or there is none —
+    then region selection degenerates to contig selection, which the
+    native pipeline and the vectorized emitter handle via tid_keep."""
+    return all(r.start <= 1 and r.stop >= r.ctg.seq_len for r in regions)
+
+
+def _vector_route(emitter, regions) -> bool:
+    """Which emitter blocks take, decided here alone: the vector emitter
+    when there is one and `regions` span whole contigs (it has no per-site
+    region gate), else the scalar `SiteEmitter`. Over the table's regions
+    this says whether the run streams (partial staging, chunked blocks);
+    over a contig's, whether that contig's blocks of
+    `_MIN_VECTOR_POSITIONS` or more take the vector emitter."""
+    return emitter.vector is not None and _whole_contigs(regions)
 
 
 def _pack_native_regions(cfg, table):
@@ -349,17 +355,17 @@ def _try_native(cfg, table, reader=None, collect_stats=False):
     partial regions stays on the Python pre-filter path)."""
     if not cfg.input_file:
         return None
-    partial = bool(table.regions) and not _whole_contig_regions(table)
+    partial_regions = not _whole_contigs(table.regions)
     regions_payload = None
     if table.regions and cfg.input_file != "-":
         regions_payload = _pack_native_regions(cfg, table)
-        if regions_payload is None and partial:
+        if regions_payload is None and partial_regions:
             # no .bai/.csi: build one beside the input when possible —
             # the indexed replay then seeks instead of scanning
             _ensure_bam_index(cfg.input_file)
             regions_payload = _pack_native_regions(cfg, table)
     stream_regions = None
-    if partial and regions_payload is None:
+    if partial_regions and regions_payload is None:
         stream_regions = _pack_stream_regions(table)
     try:
         from bs_call_tpu_torch.native.pipeline import (
@@ -491,7 +497,7 @@ def _row_engine_gate(cfg, table, engine, dbsnp, collect_stats) -> bool:
         cfg.out_file_type in (C.FT_VCF, C.FT_UNKN, C.FT_VCF_GZ)
         and dbsnp is None
         and cfg.exact
-        and (not table.regions or _whole_contig_regions(table))
+        and _whole_contigs(table.regions)
         and engine._model is not None
         and not engine.wants_reads()
         and not (collect_stats and os.environ.get("BS_CALL_PY_STATS"))
@@ -525,347 +531,372 @@ def _tid_keep(table):
     return tid_keep
 
 
+class _BlockPipeline:
+    """The three threads of a job (the reference's reader, process and
+    print threads, process.c:20-110), for both drivers. The producer
+    `bs_call producer` runs `produce(self)`, a generator of block records,
+    into a queue of 2; the caller iterates the pipeline for them (`ingest`
+    while it waits) and queues emit work with `emit`; the emit worker
+    `bs_call emit` runs that work in order from a queue of 4. The worker's
+    first error is latched and raised on the caller at its next `emit` or
+    `join`; the worker then drains the queue without running it. On exit,
+    whatever happened: the producer is stopped and drained, the emit
+    worker joined, then `close(emit_worker_alive)` runs."""
+
+    def __init__(self, tracer, produce, close=None):
+        self.tracer = tracer
+        self._stop = threading.Event()
+        self._blocks: "queue.Queue" = queue.Queue(maxsize=2)
+        self._emits: "queue.Queue" = queue.Queue(maxsize=4)
+        self._err: list = []
+        self._close = close
+        self._producer = threading.Thread(
+            target=self._produce, args=(produce,), name="bs_call producer",
+            daemon=True)
+        self._worker = threading.Thread(
+            target=self._emit_loop, name="bs_call emit", daemon=True)
+
+    def __enter__(self):
+        self._producer.start()
+        self._worker.start()
+        return self
+
+    def __exit__(self, *exc):
+        if self._worker.is_alive():
+            self._emits.put(None)
+        # the producer may be blocked on a put or inside the native
+        # pipeline; closing that under it would free what it is using
+        self._stop.set()
+        while self._producer.is_alive():
+            try:
+                self._blocks.get_nowait()
+            except queue.Empty:
+                pass
+            self._producer.join(0.05)
+        self._worker.join(timeout=10)  # it writes to caller-owned files
+        if self._close is not None:
+            self._close(self._worker.is_alive())
+
+    def wait(self, q):
+        """`q.get()` for the producer, or None once the pipeline stops."""
+        while not self._stop.is_set():
+            try:
+                return q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+        return None
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._blocks.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _produce(self, produce):
+        try:
+            for blk in produce(self):
+                if not self._put(blk):
+                    return
+            self._put(None)
+        except Exception as e:  # surface errors on the caller's side
+            self._put(e)
+
+    def __iter__(self):
+        while True:
+            with self.tracer.stage("ingest"):
+                blk = self._blocks.get()
+            if isinstance(blk, Exception):
+                raise blk
+            if blk is None:
+                return
+            yield blk
+
+    def _emit_loop(self):
+        while (entries := self._emits.get()) is not None:
+            for bid, emit, done in entries:
+                if not self._err:
+                    try:
+                        with self.tracer.stage("emit", block=bid):
+                            emit()
+                    except Exception as e:
+                        self._err.append(e)
+                if done is not None:
+                    done()
+
+    def emit(self, entries):
+        """Queue [(block id, emit, done)] for the emit worker: each
+        `emit()` runs in order unless an error came first, `done()` (or
+        None) after it either way. Raises the worker's error."""
+        if self._err:
+            raise self._err[0]
+        # the caller waits here only when the emit worker sets the pace
+        try:
+            self._emits.put_nowait(entries)
+        except queue.Full:
+            with self.tracer.stage("emit.backlog"):
+                self._emits.put(entries)
+
+    def join(self):
+        """Wait until the emit worker has run everything queued; raise its
+        error."""
+        with self.tracer.stage("emit.backlog"):
+            self._emits.put(None)
+            self._worker.join()
+        if self._err:
+            raise self._err[0]
+
+
+class _BlockRouter:
+    """The caller's side of the pipeline: each block record (a dict of
+    `bid`, `ctg`, `seq`, `x`, `y`, `n_templates`, the pileup arrays, and
+    where they apply `agg`, `reads`, `partial`, `region`, or `kind` "row"
+    and its `slot`) takes one of four routes, each a `call` stage and emit
+    work tagged with the block's id:
+
+    - `_row`: the host row engine's model; the emit worker formats the
+      slot and hands it back.
+    - `_pack`: a whole block that needs no streaming and carries reads
+      joins the pack, consecutive blocks of one contig called together in
+      one fused call while they fit one chunk (`engine.call_blocks_soa`,
+      `pack_offsets`); `flush` calls it when a block does not fit, when
+      the contig changes, before any other route and at the end. The
+      packs follow from the blocks alone, never from timing.
+    - `_chunks`: where the run streams, a block wider than a chunk.
+    - `_call`: one `engine.call_block_soa`.
+    """
+
+    def __init__(self, cfg, pipe, engine, emitter, tracer, streams,
+                 rowe=None, slots=None, collect_stats=False):
+        self.pipe, self.engine, self.emitter = pipe, engine, emitter
+        self.tracer = tracer
+        self.streams = streams
+        self.chunk = max(cfg.batch_positions, 1024)
+        self.rowe, self.slots = rowe, slots
+        self.collect_stats = collect_stats
+        self.seq = None
+        # the pack's blocks with their reference windows, sizes and widest
+        # read
+        self.pack, self.pack_sizes, self.pack_width = [], [], 0
+
+    def run(self):
+        """Every block to its route, the last pack, then wait for the emit
+        worker."""
+        for blk in self.pipe:
+            self.take(blk)
+        self.flush()
+        self.pipe.join()
+
+    def take(self, blk):
+        ctg = blk["ctg"]
+        if self.seq is None or self.seq.name != ctg.name:
+            self.flush()
+            self.tracer.progress(f"Processing contig {ctg.name}")
+            self.seq = blk["seq"]
+            ctg.gc_start_pos = self.seq.start_pos
+            if ctg.ctg_stats is not None:
+                ctg.ctg_stats.gc = self.seq.gc_bins
+        x, y = blk["x"], blk["y"]
+        sz = y - x + 1
+        self.tracer.count("blocks")
+        self.tracer.count("templates", blk["n_templates"])
+        self.tracer.count("positions", sz)
+        if blk.get("kind") == "row":
+            self.flush()
+            self._row(blk)
+            return
+        refw = sequence_window(self.seq, x, sz + 2)
+        if (blk.get("reads") and not blk.get("partial")
+                and sz <= self.chunk + 16):
+            self._pack(blk, refw, sz)
+            return
+        self.flush()
+        if self.streams and sz > self.chunk + 16:
+            self._chunks(blk, refw)
+        else:
+            # a partial staged range is a chunk of a still-open block: its
+            # last rows stay held back (the next range re-supplies the
+            # 4-row overlap, exactly like `_chunks`')
+            self._call(blk, refw, x, y, 2 if blk.get("partial") else 0)
+
+    def _row(self, blk):
+        slot = blk["slot"]
+        with self.tracer.stage("call", block=blk["bid"]):
+            self.engine.tier_positions["oracle"] += self.rowe.model(slot)
+        # the slot goes back even after an emit error, so the producer
+        # never waits on one
+        self.pipe.emit([(blk["bid"], partial(
+            self.rowe.emit, slot, self.emitter.lag, blk["ctg"],
+            2 if blk.get("partial") else 0, self.collect_stats,
+            self.emitter.vector._f,
+        ), partial(self.slots.put, slot))])
+
+    def _pack(self, blk, refw, sz):
+        width = blk["reads"]["rd"].shape[1]
+        if self.pack and self.engine.pack_offsets(
+                [*self.pack_sizes, sz], max(self.pack_width, width)) is None:
+            self.flush()
+        self.pack.append((blk, refw))
+        self.pack_sizes.append(sz)
+        self.pack_width = max(self.pack_width, width)
+
+    def flush(self):
+        if not self.pack:
+            return
+        args = [(b["counts2"], b["qual_sum"], b["mapq2_sum"], refw[:sz],
+                 b.get("agg"), (b["reads"], 0))
+                for (b, refw), sz in zip(self.pack, self.pack_sizes)]
+        with self.tracer.stage("call", block=self.pack[0][0]["bid"]):
+            soas = self.engine.call_blocks_soa(args)
+        self.pipe.emit([
+            (b["bid"], partial(_emit_block_soa, self.emitter, b["ctg"], soa,
+                               refw, b["x"], b["y"]), None)
+            for (b, refw), soa in zip(self.pack, soas)
+        ])
+        self.pack, self.pack_sizes, self.pack_width = [], [], 0
+
+    def _chunks(self, blk, refw):
+        """Stream a wide block through the emit worker in chunks, so the
+        engine call for chunk j+1 overlaps the formatting of chunk j even
+        when the whole contig is one semantic block (dense WGBS coverage
+        rarely breaks blocks). Chunks overlap by 4 positions: 2 withheld
+        lookahead rows + the 2-before context the next chunk re-supplies
+        (see emit_block hold_back). -C regions that each span a whole
+        contig (a shard worker's) stream as a run without regions does:
+        unstreamed, a block wider than a chunk leaves the fused tier for
+        the column tier."""
+        s, y = blk["x"], blk["y"]
+        while y - s + 1 > self.chunk + 16:
+            e = s + self.chunk - 1
+            self._call(blk, refw, s, e, 2)
+            s = e - 3
+        self._call(blk, refw, s, y, 2 if blk.get("partial") else 0)
+
+    def _call(self, blk, refw, s, e, hold):
+        """One `call_block_soa` over positions [s, e] of the block, emitted
+        with its last `hold` rows held back."""
+        x, bid, agg, reads = blk["x"], blk["bid"], blk.get("agg"), \
+            blk.get("reads")
+        sl = slice(s - x, e - x + 1)
+        sub_agg = {k: v[sl] for k, v in agg.items()} if agg else None
+        with self.tracer.stage("call", block=bid):
+            soa = self.engine.call_block_soa(
+                blk["counts2"][sl], blk["qual_sum"][sl],
+                blk["mapq2_sum"][sl], refw[sl], agg=sub_agg,
+                reads=(reads, s - x) if reads else None,
+            )
+        self.pipe.emit([(bid, partial(
+            _emit_block_soa, self.emitter, blk["ctg"], soa,
+            refw[s - x: e - x + 3], s, e, hold, blk.get("region"),
+        ), None)])
+
+
 def process_contig_blocks_native(
     cfg, npipe, table, fasta, engine, emitter, stats, tracer=None, rowe=None
 ):
     """Native-pipeline driver: C++ produces (x, y, pileup tensors) blocks;
     Python does reference windows, genotype batches and emission. With
     `rowe` (a HostRowEngine, which this call closes) every staged block of
-    9 or more positions runs load / model / emit natively; the others are
-    collected and go through `engine.call_block_soa`, in the same ordered
-    emit worker. Consecutive whole blocks of a contig that need no
-    streaming and carry reads are called together while they fit one
-    fused chunk (`engine.call_blocks_soa`, `pack_offsets`): the packs
-    follow from the blocks alone, never from timing.
+    `_MIN_VECTOR_POSITIONS` or more runs load / model / emit natively; the
+    others are collected and go through the engine. `_BlockRouter` takes
+    each block to its route.
 
-    Three threads, each with its stages on `tracer`: the producer
-    (`ingest.native`, `ingest.contig`, `ingest.pileup`, `ingest.reads`,
-    `meth_prof`, `ingest_load`), this caller (`ingest`: waiting for the
-    producer; `call`; `emit.backlog`: waiting for the emit worker) and
-    the emit worker (`emit`). The producer numbers the blocks from 0
-    (`bid`); each block-level span carries its block's number."""
+    The producer's stages: `ingest.native`, `ingest.contig`,
+    `ingest.pileup`, `ingest.reads`, `meth_prof`, `ingest_load`. It
+    numbers the blocks from 0 (`bid`); each block-level span carries its
+    block's number."""
     # re-open with stats collection if needed (no-op when the pipeline
     # was already created with stats on, e.g. non-reopenable stdin pipes)
     if stats is not None and not npipe.stats_on:
         npipe = npipe.reopen(collect_stats=True)
-    import itertools
-    import queue
-    import threading
-
-    from bs_call_tpu_torch.utils.trace import NULL_TRACER
-
     tracer = tracer or NULL_TRACER
-    contig_seq = None
-    whole_contigs = _whole_contig_regions(table)
-    # settled-prefix partial staging: only with the vector emitter (the
-    # hold_back streaming contract) and whole-contig processing. -C
-    # regions that each span a full contig (the shard-worker pattern)
-    # behave like plain contig processing modulo the indexed seek, so
-    # they stage partials too — otherwise a dense whole-contig region
-    # becomes ONE giant block and the worker faults contig-sized
-    # buffers (hundreds of MB of sys time per shard).
-    if (
-        getattr(emitter, "vector", None) is not None
-        and (not table.regions or whole_contigs)
-        and hasattr(npipe, "set_partial")
-    ):
+    # settled-prefix partial staging where the run streams: -C regions
+    # that each span a full contig (the shard-worker pattern) behave like
+    # plain contig processing modulo the indexed seek, so they stage
+    # partials too — otherwise a dense whole-contig region becomes ONE
+    # giant block and the worker faults contig-sized buffers (hundreds of
+    # MB of sys time per shard).
+    streams = _vector_route(emitter, table.regions)
+    if streams:
         npipe.set_partial(2 * max(cfg.batch_positions, 1024))
-    # background ingest: the C++ pipeline releases the GIL, so block
-    # production overlaps with calling + emission (the reference's
-    # reader-thread / process-thread split, process.c:43-72). Contig
-    # loading and the meth profile also live here: bsp_block_meth_profile
-    # references the pipeline's *staged* block, which stays valid exactly
-    # until this thread's next next_block call (the reference's
-    # mprof_thread, process.c:20-41). The loaded contig rides the block
-    # dict so the consumer never touches the FastaIndex.
-    q: "queue.Queue" = queue.Queue(maxsize=2)
-    stop = threading.Event()  # consumer error: producer must exit before
-    # npipe.close() or bsp_next_block races the C++ teardown
-    ve = getattr(emitter, "vector", None)
+    # the row engine's slots: loaded by the producer, modelled by the
+    # caller, emitted by the emit worker, which hands each one back
+    slots: "queue.Queue" = queue.Queue()
+    for s in range(rowe.N_SLOTS if rowe is not None else 0):
+        slots.put(s)
 
-    def _put(item) -> bool:
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    # the row engine's slots: loaded by the producer, modelled by this
-    # thread, emitted by the emit worker, which hands each one back
-    free_slots: "queue.Queue" = queue.Queue()
-    if rowe is not None:
-        for _s in range(rowe.N_SLOTS):
-            free_slots.put(_s)
-
-    def _get_slot():
-        while not stop.is_set():
-            try:
-                return free_slots.get(timeout=0.1)
-            except queue.Empty:
-                continue
-        return None
-
-    def produce():
+    def produce(pipe):
+        # the C++ pipeline releases the GIL, so block production overlaps
+        # calling and emission. Contig loading and the meth profile live
+        # here too: bsp_block_meth_profile references the pipeline's
+        # *staged* block, which stays valid exactly until this thread's
+        # next next_block call (the reference's mprof_thread,
+        # process.c:20-41). The loaded contig rides the block record so
+        # the caller never touches the FastaIndex.
         pseq = None
-        try:
-            for bid in itertools.count():
-                with tracer.stage("ingest.native") as sp:
-                    if hasattr(npipe, "next_block_meta"):
-                        b = npipe.next_block_meta()
-                    else:
-                        b = npipe.next_block()
-                    if b is not None:
-                        sp.block = bid
-                if b is None:
-                    _put(None)
-                    return
-                cname = table.contigs[table.tid2id[b["tid"]]].name
-                if pseq is None or pseq.name != cname:
-                    with tracer.stage("ingest.contig", block=bid):
-                        pseq = fasta.load_contig(
-                            cname, calc_gc=stats is not None
-                        )
-                collected = "counts2" in b
-                sz = b["y"] - b["x"] + 1
-                if rowe is not None and not collected and sz >= 9:
-                    slot = _get_slot()
-                    if slot is None:
-                        return
-                    refw = sequence_window(pseq, b["x"], sz + 2)
-                    with tracer.stage("ingest_load", block=bid):
-                        rowe.load(slot, npipe, b["x"], b["y"], refw)
-                    b["kind"] = "row"
-                    b["slot"] = slot
-                elif not collected:
-                    with tracer.stage("ingest.pileup", block=bid):
-                        b = npipe._collect_block()
-                b["bid"] = bid
-                b["seq"] = pseq
-                # fused device tier: export the staged block's read
-                # batch (valid only until the next next_block call, so
-                # it must be copied out here)
-                if engine.wants_reads() and b.get("kind") != "row":
-                    with tracer.stage("ingest.reads", block=bid):
-                        b["reads"] = npipe.block_reads()
-                if stats is not None:
-                    with tracer.stage("meth_prof", block=bid):
-                        mx = b.get("meth_x", b["x"])
-                        rw = sequence_window(
-                            pseq, mx, b["y"] - mx + 3
-                        )
-                        stats.grow_meth_profile(b["max_pos"] + 1)
-                        npipe.block_meth_profile(rw, stats.meth_profile)
-                if not _put(b):
-                    return
-        except Exception as e:  # surface errors on the consumer side
-            _put(e)
-
-    t = threading.Thread(target=produce, name="bs_call producer",
-                         daemon=True)
-    t.start()
-    # emit stage runs on its own thread (the reference's print_thread,
-    # process.c:74-110): formatting/writing block k overlaps the engine
-    # call for block k+1. A single ordered worker keeps the 2-position
-    # lag and CpG-pair state sequential, for row blocks (written by
-    # bsre_emit straight into the vector emitter's file) and engine
-    # blocks alike. Block arrays are host copies (native/pipeline.py
-    # next_block), so no aliasing with the C++ side.
-    emit_q: "queue.Queue" = queue.Queue(maxsize=4)
-    emit_err: list = []
-
-    def emit_worker():
-        while True:
-            item = emit_q.get()
-            if item is None:
+        for bid in itertools.count():
+            with tracer.stage("ingest.native") as sp:
+                b = npipe.next_block_meta()
+                if b is not None:
+                    sp.block = bid
+            if b is None:
                 return
-            if item[0] == "row":
-                # the slot goes back even after an error, so the
-                # producer never waits on one
-                _, bid, slot, ctg_r, partial_r = item
-                if not emit_err:
-                    try:
-                        with tracer.stage("emit", block=bid):
-                            rowe.emit(slot, emitter, ctg_r,
-                                      2 if partial_r else 0,
-                                      stats is not None, ve._f)
-                    except Exception as e:
-                        emit_err.append(e)
-                free_slots.put(slot)
-                continue
-            # ("py", [(bid, _emit_block_soa's args)]): a pack's blocks
-            # or one block's chunk
-            for bid, args in item[1]:
-                if emit_err:
-                    break  # drain so the producer can't block
-                try:
-                    with tracer.stage("emit", block=bid):
-                        _emit_block_soa(cfg, emitter, *args)
-                except Exception as e:
-                    emit_err.append(e)
-
-    def emit_put(item):
-        # the caller waits here only when the emit worker sets the pace
-        try:
-            emit_q.put_nowait(item)
-        except queue.Full:
-            with tracer.stage("emit.backlog"):
-                emit_q.put(item)
-
-    et = threading.Thread(target=emit_worker, name="bs_call emit",
-                          daemon=True)
-    et.start()
-    CHUNK = max(cfg.batch_positions, 1024)
-    # consecutive whole blocks called in one fused call
-    # (`engine.call_blocks_soa`): [(bid, call args, emit args)], their
-    # sizes and widest read
-    pack, pack_sizes, pack_width = [], [], 0
-
-    def flush():
-        nonlocal pack_width
-        if not pack:
-            return
-        with tracer.stage("call", block=pack[0][0]):
-            soas = engine.call_blocks_soa([p[1] for p in pack])
-        if emit_err:
-            raise emit_err[0]
-        emit_put(("py", [(bid, (ctg, soa, *rest))
-                         for (bid, _, (ctg, *rest)), soa in zip(pack, soas)]))
-        pack.clear()
-        pack_sizes.clear()
-        pack_width = 0
-
-    try:
-        while True:
-            with tracer.stage("ingest"):
-                blk = q.get()
-            if isinstance(blk, Exception):
-                raise blk
-            if blk is None:
-                flush()
-                break
-            ctg = table.contigs[table.tid2id[blk["tid"]]]
-            if contig_seq is None or contig_seq.name != ctg.name:
-                flush()
-                tracer.progress(f"Processing contig {ctg.name}")
-                contig_seq = blk["seq"]
-                ctg.gc_start_pos = contig_seq.start_pos
-                if ctg.ctg_stats is not None:
-                    ctg.ctg_stats.gc = contig_seq.gc_bins
-            x, y = blk["x"], blk["y"]
-            sz = y - x + 1
-            tracer.count("blocks")
-            tracer.count("templates", blk["n_templates"])
-            tracer.count("positions", sz)
-            bid = blk["bid"]
-            rd_blk = blk.get("reads")
-            partial = blk.get("partial", False)
-            if (blk.get("kind") != "row" and rd_blk and not partial
-                    and sz <= CHUNK + 16):
-                # a whole block that needs no streaming: packed with its
-                # neighbours while the chunk has room
-                width = max(pack_width, rd_blk["rd"].shape[1])
-                if pack and engine.pack_offsets([*pack_sizes, sz],
-                                                width) is None:
-                    flush()
-                    width = rd_blk["rd"].shape[1]
-                ref_window = sequence_window(contig_seq, x, sz + 2)
-                pack.append((bid, (
-                    blk["counts2"], blk["qual_sum"], blk["mapq2_sum"],
-                    ref_window[:sz], blk.get("agg"), (rd_blk, 0),
-                ), (ctg, ref_window, x, y, 0)))
-                pack_sizes.append(sz)
-                pack_width = width
-                continue
-            flush()
-            if blk.get("kind") == "row":
-                with tracer.stage("call", block=bid):
-                    engine.tier_positions["oracle"] += rowe.model(
-                        blk["slot"])
-                if emit_err:
-                    raise emit_err[0]
-                emit_put(("row", bid, blk["slot"], ctg,
-                          blk.get("partial", False)))
-                continue
-            ref_window = sequence_window(contig_seq, x, sz + 2)
-            # stream big blocks through the emit worker in chunks so the
-            # engine batch for chunk j+1 overlaps the formatting of chunk
-            # j even when the whole contig is one semantic block (dense
-            # WGBS coverage rarely breaks blocks). Chunks overlap by 4
-            # positions: 2 withheld lookahead rows + the 2-before context
-            # the next chunk re-supplies (see emit_block hold_back). -C
-            # regions that each span a whole contig (a shard worker's)
-            # stream as a run without regions does: unstreamed, a block
-            # wider than a chunk leaves the fused tier for the column tier.
-            stream = (
-                getattr(emitter, "vector", None) is not None
-                and sz > CHUNK + 16
-                and (not getattr(ctg, "regions", None) or whole_contigs)
-            )
-            agg = blk.get("agg")
-            # a partial staged range is a chunk of a still-open block:
-            # its last rows stay held back (the next range re-supplies
-            # the 4-row overlap, exactly like the in-range chunks below)
-            s = x
-            while True:
-                if stream and y - s + 1 > CHUNK + 16:
-                    e = s + CHUNK - 1
-                    hold = 2
-                else:
-                    e = y
-                    hold = 2 if partial else 0
-                sl = slice(s - x, e - x + 1)
-                sub_agg = (
-                    {k: v[sl] for k, v in agg.items()} if agg else None
-                )
-                with tracer.stage("call", block=bid):
-                    soa = engine.call_block_soa(
-                        blk["counts2"][sl], blk["qual_sum"][sl],
-                        blk["mapq2_sum"][sl],
-                        ref_window[s - x : e - x + 1], agg=sub_agg,
-                        reads=(rd_blk, s - x) if rd_blk else None,
+            ctg = table.contigs[table.tid2id[b["tid"]]]
+            if pseq is None or pseq.name != ctg.name:
+                with tracer.stage("ingest.contig", block=bid):
+                    pseq = fasta.load_contig(
+                        ctg.name, calc_gc=stats is not None
                     )
-                if emit_err:
-                    raise emit_err[0]
-                emit_put(("py", [(
-                    bid,
-                    (ctg, soa, ref_window[s - x : e - x + 3], s, e, hold),
-                )]))
-                if e == y:
-                    break
-                s = e - 3
-        with tracer.stage("emit.backlog"):
-            emit_q.put(None)
-            et.join()
-        if emit_err:
-            raise emit_err[0]
+            collected = "counts2" in b
+            sz = b["y"] - b["x"] + 1
+            if (rowe is not None and not collected
+                    and sz >= _MIN_VECTOR_POSITIONS):
+                slot = pipe.wait(slots)
+                if slot is None:
+                    return
+                refw = sequence_window(pseq, b["x"], sz + 2)
+                with tracer.stage("ingest_load", block=bid):
+                    rowe.load(slot, npipe, b["x"], b["y"], refw)
+                b["kind"] = "row"
+                b["slot"] = slot
+            elif not collected:
+                with tracer.stage("ingest.pileup", block=bid):
+                    b = npipe._collect_block()
+            b.update(bid=bid, ctg=ctg, seq=pseq)
+            # fused device tier: export the staged block's read batch
+            # (valid only until the next next_block call, so it must be
+            # copied out here)
+            if engine.wants_reads() and b.get("kind") != "row":
+                with tracer.stage("ingest.reads", block=bid):
+                    b["reads"] = npipe.block_reads()
+            if stats is not None:
+                with tracer.stage("meth_prof", block=bid):
+                    mx = b.get("meth_x", b["x"])
+                    rw = sequence_window(pseq, mx, b["y"] - mx + 3)
+                    stats.grow_meth_profile(b["max_pos"] + 1)
+                    npipe.block_meth_profile(rw, stats.meth_profile)
+            yield b
+
+    def close(emit_alive):
+        npipe.close()
+        if rowe is not None:
+            # an emit worker still alive may be inside bsre_emit, so its
+            # handle is left to it, not freed
+            if emit_alive:
+                rowe.abandon()
+            else:
+                rowe.close()
+
+    with _BlockPipeline(tracer, produce, close) as pipe:
+        _BlockRouter(cfg, pipe, engine, emitter, tracer, streams, rowe,
+                     slots, stats is not None).run()
         if stats is not None:
             fc, fb, bf = npipe.get_stats()
             stats.filter_cts += fc
             stats.filter_bases += fb
             stats.base_filter += bf
-    finally:
-        if et.is_alive():
-            emit_q.put(None)
-        # the producer may be blocked on q.put or inside next_block;
-        # closing npipe under it would free the C++ pipeline it is using
-        stop.set()
-        while t.is_alive():
-            try:
-                q.get_nowait()
-            except queue.Empty:
-                pass
-            t.join(0.05)
-        et.join(timeout=10)  # emitter writes to caller-owned fileobj
-        npipe.close()
-        if rowe is not None:
-            # the producer has ended; an emit worker still alive may be
-            # inside bsre_emit, so its handle is left to it, not freed
-            if et.is_alive():
-                rowe.abandon()
-            else:
-                rowe.close()
 
 
 def _indexed_region_records(cfg, table):
@@ -911,15 +942,11 @@ def _indexed_region_records(cfg, table):
 
 def process_contig_blocks(cfg, reader, table, fasta, engine, emitter, stats,
                           tracer=None):
-    """Python-path driver (SAM/CRAM/stdin/partial regions): same 3-stage
-    thread pipeline as the native driver — block building + template
-    normalization + pileup on a producer thread, engine batches on this
-    thread, ordered emission on an emit worker."""
-    import queue
-    import threading
-
-    from bs_call_tpu_torch.utils.trace import NULL_TRACER
-
+    """Python-path driver (SAM/CRAM/stdin/partial regions): the native
+    driver's three threads, with block building, template normalization
+    (`normalize`) and the pileup (`pileup`) on the producer, which numbers
+    the blocks from 0. The blocks carry no reads and the run does not
+    stream, so each block takes one engine call."""
     tracer = tracer or NULL_TRACER
     records = iter(reader)
     prefiltered = False
@@ -929,118 +956,41 @@ def process_contig_blocks(cfg, reader, table, fasta, engine, emitter, stats,
             records = indexed
             prefiltered = True
 
-    q: "queue.Queue" = queue.Queue(maxsize=2)
-    stop = threading.Event()
-
-    def _put(item) -> bool:
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    def produce():
-        contig_seq = None
-        try:
-            for block in read_blocks(
-                records, table, cfg, stats=stats, prefiltered=prefiltered
-            ):
-                ctg = block.ctg
-                if contig_seq is None or contig_seq.name != ctg.name:
-                    contig_seq = fasta.load_contig(
-                        ctg.name, calc_gc=stats is not None
+    def produce(_pipe):
+        seq = None
+        for bid, block in enumerate(read_blocks(
+            records, table, cfg, stats=stats, prefiltered=prefiltered
+        )):
+            ctg = block.ctg
+            if seq is None or seq.name != ctg.name:
+                seq = fasta.load_contig(ctg.name, calc_gc=stats is not None)
+            y = block.y
+            first = block.align_list[0]
+            x = first.forward_position or first.reverse_position
+            assert 0 < x <= y
+            x = x - 2 if x > 2 else 1
+            ref_window = sequence_window(seq, x, y - x + 3)
+            with tracer.stage("normalize", block=bid):
+                for al in block.align_list:
+                    orig_pos, max_pos = process_template(
+                        al,
+                        cfg.left_trim,
+                        cfg.right_trim,
+                        stats=stats,
+                        min_qual=cfg.min_qual,
                     )
-                    ctg.gc_start_pos = contig_seq.start_pos
-                    if ctg.ctg_stats is not None:
-                        ctg.ctg_stats.gc = contig_seq.gc_bins
-                y = block.y
-                first = block.align_list[0]
-                x = first.forward_position or first.reverse_position
-                assert 0 < x <= y
-                x = x - 2 if x > 2 else 1
-                sz = y - x + 1
-                ref_window = sequence_window(contig_seq, x, sz + 2)
-                with tracer.stage("normalize"):
-                    for al in block.align_list:
-                        orig_pos, max_pos = process_template(
-                            al,
-                            cfg.left_trim,
-                            cfg.right_trim,
-                            stats=stats,
-                            min_qual=cfg.min_qual,
+                    if stats is not None:
+                        meth_profile(
+                            al, x, orig_pos, max_pos, ref_window, stats,
                         )
-                        if stats is not None:
-                            meth_profile(
-                                al, x, orig_pos, max_pos, ref_window,
-                                stats,
-                            )
-                with tracer.stage("pileup"):
-                    counts2, qual_sum, mapq2_sum = build_pileup(
-                        block.align_list, x, y, cfg.min_qual
-                    )
-                if not _put(
-                    (ctg, block.region, counts2, qual_sum, mapq2_sum,
-                     ref_window, x, y)
-                ):
-                    return
-            _put(None)
-        except Exception as e:
-            _put(e)
-
-    emit_q: "queue.Queue" = queue.Queue(maxsize=4)
-    emit_err: list = []
-
-    def emit_worker():
-        while True:
-            item = emit_q.get()
-            if item is None:
-                return
-            if emit_err:
-                continue
-            try:
-                with tracer.stage("emit"):
-                    _emit_block_soa(cfg, emitter, *item)
-            except Exception as e:
-                emit_err.append(e)
-
-    t = threading.Thread(target=produce, daemon=True)
-    et = threading.Thread(target=emit_worker, daemon=True)
-    t.start()
-    et.start()
-    try:
-        while True:
-            with tracer.stage("ingest"):
-                blk = q.get()
-            if isinstance(blk, Exception):
-                raise blk
-            if blk is None:
-                break
-            (ctg, region, counts2, qual_sum, mapq2_sum, ref_window,
-             x, y) = blk
-            sz = y - x + 1
-            tracer.count("blocks")
-            tracer.count("positions", sz)
-            with tracer.stage("call"):
-                soa = engine.call_block_soa(
-                    counts2, qual_sum, mapq2_sum, ref_window[:sz]
+            with tracer.stage("pileup", block=bid):
+                counts2, qual_sum, mapq2_sum = build_pileup(
+                    block.align_list, x, y, cfg.min_qual
                 )
-            if emit_err:
-                raise emit_err[0]
-            emit_q.put((ctg, soa, ref_window, x, y, 0, region))
-        emit_q.put(None)
-        et.join()
-        if emit_err:
-            raise emit_err[0]
-    finally:
-        if et.is_alive():
-            emit_q.put(None)
-        stop.set()
-        while t.is_alive():
-            try:
-                q.get_nowait()
-            except queue.Empty:
-                pass
-            t.join(0.05)
-        et.join(timeout=10)
+            yield {"bid": bid, "ctg": ctg, "seq": seq, "region": block.region,
+                   "x": x, "y": y, "n_templates": len(block.align_list),
+                   "counts2": counts2, "qual_sum": qual_sum,
+                   "mapq2_sum": mapq2_sum}
+
+    with _BlockPipeline(tracer, produce) as pipe:
+        _BlockRouter(cfg, pipe, engine, emitter, tracer, False).run()

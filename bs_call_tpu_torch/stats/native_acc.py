@@ -79,11 +79,12 @@ class NativeStatsAcc:
             self._lib.bsc_stats_acc_free(ctypes.c_void_p(self._h))
             self._h = None
 
-    def accumulate(self, emitter, ctg, soa, pos, reach, idx, g, r, rf7,
+    def accumulate(self, lag, ctg, soa, pos, reach, idx, g, r, rf7,
                    phred, qd, fs_int, mq, flt, mac1, counts, cond_cg,
                    rs_present):
         """Mirror of _accumulate_stats' inputs; updates the emitter's
-        CpG carry state (prev_cpg_x/prev_cpg_flt) like the numpy path."""
+        CpG carry state (`lag`'s prev_cpg_x/prev_cpg_flt) like the numpy
+        path."""
         h = ctypes.c_void_p(self._h)
         lib = self._lib
         pos = np.ascontiguousarray(pos, dtype=np.int64)
@@ -128,16 +129,16 @@ class NativeStatsAcc:
             else np.zeros(n, dtype=np.uint8)
         )
         rf3 = np.ascontiguousarray(rf7[idx, 1:4], dtype=np.int32)
-        px = ctypes.c_int64(int(emitter.prev_cpg_x))
-        pf = ctypes.c_uint8(1 if emitter.prev_cpg_flt else 0)
+        px = ctypes.c_int64(int(lag.prev_cpg_x))
+        pf = ctypes.c_uint8(1 if lag.prev_cpg_flt else 0)
         lib.bsc_stats_acc_rows(
             h, n, int(ctg.bam_tid), _i64(pos_e), _i32(g32), _i32(r32),
             _i32(ph32), _i32(qd32), _i64(fs64), _i32(mq32), _i32(fltf),
             _i32(cnt), _u8(cg8), _u8(rsp), _i32(rf3),
             ctypes.byref(px), ctypes.byref(pf),
         )
-        emitter.prev_cpg_x = int(px.value)
-        emitter.prev_cpg_flt = bool(pf.value)
+        lag.prev_cpg_x = int(px.value)
+        lag.prev_cpg_flt = bool(pf.value)
         return True
 
     def merge_into(self, stats, table) -> None:
